@@ -7,12 +7,12 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build both support-count kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the build time;
-2. call each kernel's wrapper at the shapes the mining main path gives it
-   (one transaction tile × the k=2 candidate batch) and at a few ragged
-   shapes, and require exact equality with its plain PyTorch version;
-   time the kernel, the plain version and, for the int8 kernel,
+1. build all four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print the build time;
+2. call each support-count kernel's wrapper at the shapes the mining main
+   path gives it (one transaction tile × the k=2 candidate batch) and at a
+   few ragged shapes, and require exact equality with its plain PyTorch
+   version; time the kernel, the plain version and, for the int8 kernel,
    ``torch._int_mm`` plus the compare-and-sum (a yardstick the port never
    calls);
 3. mine a corpus at the scale of IBM Quest T10I4D100K (100,000
@@ -21,7 +21,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    plane — and require equal supports and rules, launches of each kernel
    on its path, one device-to-host read per counting round, and supports
    that numpy recounts exactly;
-4. print the card's name and power limit, the ``kernels`` JSON line and,
+4. compile the mined rules into a ``RuleIndex`` and hold each rule-match
+   kernel exactly against its plain version at the shapes serving gives
+   it (that index against batches of 8 and 64 corpus baskets), at ragged
+   shapes, and at a wider index of 16,384 random rules; time both at the
+   64-basket shape and the wide one, beside the plain versions and, for
+   the int8 kernel, ``torch._int_mm`` plus the compare-and-weight;
+5. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
+   times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
+   scores — and require equal recommendations and reports, launches of
+   each kernel on its own path only, and the brute-force oracle's answer
+   for the first 512 baskets; print each serve's wall, the part spent in
+   scoring calls and in garbage-collector pauses, and the host functions
+   with the most own time in one more (profiled) serve per kernel path;
+6. print the card's name and power limit, the ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -29,7 +42,11 @@ or where the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import cProfile
+import dataclasses
+import gc
 import json
+import pstats
 import subprocess
 import sys
 import time
@@ -46,6 +63,12 @@ CORPUS = dict(n_tx=100_000, n_items=1000, seed=0)   # T10I4D100K scale
 MIN_SUPPORT = 0.01
 N_TILES = 32
 REPS = 20
+N_QUERIES = 4096           # baskets served on each serving path
+N_ORACLE = 512             # of them checked against the brute-force oracle
+WIDE_RULES = 16_384        # rows of the wider index the kernels are timed on
+# clocks the card spins before each timed loop, so that every timed launch
+# is queued before the first one starts (about 25 ms at 1,980 MHz)
+QUEUE_SLEEP_CYCLES = 50_000_000
 
 
 def _nvidia_smi(query: str) -> str:
@@ -57,18 +80,44 @@ def _nvidia_smi(query: str) -> str:
 
 def _cuda_ms(torch, fn, reps: int = REPS) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after warm-up
-    (inputs stay in the 50 MB L2 between launches)."""
+    (inputs stay in the 50 MB L2 between launches).
+
+    The card first spins for ``QUEUE_SLEEP_CYCLES``; the launches are
+    queued meanwhile, so they run back to back and the events time the
+    device, not the host's rate of enqueueing small kernels.  Raises if
+    the host took longer to enqueue them than the card spun."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     end.synchronize()
+    if enqueue_ms >= spin.elapsed_time(start):
+        raise AssertionError(f"enqueueing {reps} calls took {enqueue_ms:.2f}"
+                             " ms, longer than the card spun: the timing "
+                             "would include host gaps")
     return start.elapsed_time(end) / reps
+
+
+def _without_walls(x):
+    """A report as plain values, without the fields that time this process
+    (``wall_time_s``, ``host_time_s``)."""
+    if dataclasses.is_dataclass(x):
+        x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    if isinstance(x, dict):
+        return {k: _without_walls(v) for k, v in x.items()
+                if k not in ("wall_time_s", "host_time_s")}
+    if isinstance(x, (list, tuple)):
+        return [_without_walls(v) for v in x]
+    return x
 
 
 def main() -> int:
@@ -88,10 +137,27 @@ def main() -> int:
     from repro_torch.core.rules import generate_rules
     from repro_torch.data.baskets import BasketConfig, generate_baskets
     from repro_torch.kernels import loader
+    from repro_torch.kernels.rule_match import fused as rm_fused
+    from repro_torch.kernels.rule_match import kernel as rm_kernel
+    from repro_torch.kernels.rule_match.ops import rule_topk
     from repro_torch.kernels.support_count import fused, kernel
     from repro_torch.pipeline import (MarketBasketPipeline, PipelineConfig,
                                       ingest_baskets, uniform_tiles)
     from repro_torch.pipeline.dataplane import pad_candidates
+    from repro_torch.serving import (Query, RecommendationEngine, RuleIndex,
+                                     ServingConfig, recommend_bruteforce)
+
+    wrappers = {"packed": fused.support_count_packed,
+                "int8": kernel.support_count_int8,
+                "rm_packed": rm_fused.rule_scores_packed,
+                "rm_int8": rm_kernel.rule_scores_int8}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
 
     # float32 matmuls in the plain versions run in full float32 (the
     # default); their 0/1 operands are exact under TF32 too
@@ -101,7 +167,8 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
-    logs = loader.build(["support_count_packed", "support_count_int8"])
+    logs = loader.build(["support_count_packed", "support_count_int8",
+                         "rule_match_packed", "rule_match_int8"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -132,9 +199,9 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
-            raise AssertionError(f"{what}: {bad} of {want.numel()} counts "
+            raise AssertionError(f"{what}: {bad} of {want.numel()} values "
                                  "differ from the plain version")
-        return float((got.to(torch.int64) - want.to(torch.int64)).abs()
+        return float((got.to(torch.float64) - want.to(torch.float64)).abs()
                      .max()) if want.numel() else 0.0
 
     Tw, Cw = fused.pack_words(tile), fused.pack_words(C)
@@ -239,11 +306,9 @@ def main() -> int:
     def drive(**kw):
         """One path of the main path: counts zeroed just before, read
         just after."""
-        fused.support_count_packed.launches = 0
-        kernel.support_count_int8.launches = 0
+        zero_counts()
         res = mine(**kw)
-        return res, {"packed": fused.support_count_packed.launches,
-                     "int8": kernel.support_count_int8.launches}
+        return res, read_counts()
 
     packed, on_packed = drive()
     mxu, on_mxu = drive(tuning={"variant": "mxu"})
@@ -253,7 +318,9 @@ def main() -> int:
     launches = {"packed": on_packed["packed"], "int8": on_mxu["int8"]}
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {launches}")
-    if on_packed["int8"] or on_mxu["packed"] or any(on_ref.values()):
+    if (on_packed["int8"] or on_mxu["packed"] or any(on_ref.values())
+            or any(c[k] for c in (on_packed, on_mxu)
+                   for k in ("rm_packed", "rm_int8"))):
         raise AssertionError("a path launched another path's kernel")
     if launches["packed"] != launches["int8"]:
         raise AssertionError("both variants must count the same tiles")
@@ -275,7 +342,204 @@ def main() -> int:
     print(f"mines agree: {len(packed.supports)} itemsets recounted by "
           "numpy, rules regenerated")
 
-    # ---- 4. result lines ----------------------------------------------
+    # ---- 4. rule-match kernels against their plain versions ----------
+    index = RuleIndex.build(packed.rules, n_items_raw)
+    R, Ip = index.n_rows_padded, index.n_items_padded
+    print(f"rule index: {index.n_rows} rows from {index.n_rules} rules, "
+          f"padded to [{R}, {Ip}]")
+    if Ip != I:
+        raise AssertionError(f"index items {Ip} != corpus lanes {I}")
+
+    def rule_match_both(Qm, Am, s_f, cf, what):
+        """Both rule-match kernels against their plain versions on 0/1
+        int8 queries/antecedents, float32 sizes and conf."""
+        Qmw, Amw, s_i = fused.pack_words(Qm), fused.pack_words(Am), \
+            s_f.to(torch.int32)
+        for key, got, want in (
+                ("rm_packed", rm_fused.rule_scores_packed(Qmw, Amw, s_i, cf),
+                 rm_fused.rule_scores_packed_plain(Qmw, Amw, s_i, cf)),
+                ("rm_int8", rm_kernel.rule_scores_int8(Qm, Am, s_f, cf),
+                 rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf))):
+            err[key] = max(err.get(key, 0.0),
+                           check(got, want, f"{key} {what}"))
+        return want
+
+    def random_index(n_rules, n_items, seed):
+        """n_rules antecedents of 1-3 random items below n_items, with
+        random confidences, on the card."""
+        g = np.random.default_rng(seed)
+        A = np.zeros((n_rules, Ip), np.int8)
+        cols = g.integers(0, n_items, (n_rules, 3))
+        keep = np.arange(3)[None, :] < g.integers(1, 4, (n_rules, 1))
+        A[np.repeat(np.arange(n_rules)[:, None], 3, 1)[keep], cols[keep]] = 1
+        return (torch.from_numpy(A).to(dev),
+                torch.from_numpy(A.sum(1).astype(np.float32)).to(dev),
+                torch.from_numpy(g.random(n_rules).astype(np.float32)).to(dev))
+
+    A8 = torch.from_numpy(index.ante).to(dev).view(torch.int8)
+    sizes_f = torch.from_numpy(index.sizes).to(dev)
+    conf = torch.from_numpy(index.conf).to(dev)
+    baskets = torch.from_numpy(T[:64]).to(dev).view(torch.int8)
+    for b in (8, 64):
+        hits = rule_match_both(baskets[:b], A8, sizes_f, conf,
+                               f"(serving shape, bucket {b})")
+    if not (hits > 0).any():
+        raise AssertionError("no corpus basket matches a mined rule")
+    g = np.random.default_rng(2)
+    for b, r, i in [(5, 200, 128), (64, 333, 1024)]:
+        Qr = torch.from_numpy((g.random((b, i)) < 0.3).astype(np.int8))
+        Ar = torch.from_numpy((g.random((r, i)) < 4 / i).astype(np.int8))
+        Ar[0] = 0                          # |a| = 0 matches every basket
+        Qr, Ar = Qr.to(dev), Ar.to(dev)
+        rule_match_both(Qr, Ar, Ar.sum(1).to(torch.float32),
+                        torch.from_numpy(g.random(r).astype(np.float32))
+                        .to(dev), f"[{b}, {r}, {i}]")
+    # an index of padding rows only: sizes -1 never match
+    pad_only = rule_match_both(
+        baskets[:8], torch.zeros((128, Ip), dtype=torch.int8, device=dev),
+        torch.full((128,), -1.0, device=dev),
+        torch.zeros(128, device=dev), "(128 padding rows)")
+    if pad_only.any():
+        raise AssertionError("a padding row matched")
+    A_wide, sizes_wide, conf_wide = random_index(WIDE_RULES, n_items_raw, 3)
+    rule_match_both(baskets, A_wide, sizes_wide, conf_wide,
+                    f"(wide index [{WIDE_RULES}, {Ip}])")
+    print("rule-match kernels match their plain versions exactly "
+          "(serving shapes + 3 ragged shapes + a wide index)")
+
+    def int_mm_scores(Qm, Am, s_i, cf):
+        dots = torch._int_mm(Qm, Am.t())
+        return (dots == s_i[None, :]).to(torch.float32) * cf[None, :]
+
+    def time_rule_match(Qm, Am, s_f, cf):
+        Qmw, Amw, s_i = fused.pack_words(Qm), fused.pack_words(Am), \
+            s_f.to(torch.int32)
+        check(int_mm_scores(Qm, Am, s_i, cf),
+              rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf),
+              "torch._int_mm yardstick")
+        B_, R_ = Qm.shape[0], Am.shape[0]
+        W_ = Ip // 32
+        bound = {
+            "rm_packed": {"operations": B_ * R_ * W_ / popc_per_s * 1e3,
+                          "bytes": (B_ * W_ * 4 + R_ * W_ * 4 + 2 * R_ * 4
+                                    + B_ * R_ * 4) / HBM_BYTES_PER_S * 1e3},
+            "rm_int8": {"operations": 2 * B_ * R_ * Ip / INT8_OPS_PER_S
+                        * 1e3,
+                        "bytes": (B_ * Ip + R_ * Ip + 2 * R_ * 4
+                                  + B_ * R_ * 4) / HBM_BYTES_PER_S * 1e3},
+        }
+        out = {
+            "rm_packed": dict(
+                ms=_cuda_ms(torch, lambda: rm_fused.rule_scores_packed(
+                    Qmw, Amw, s_i, cf)),
+                plain_ms=_cuda_ms(torch, lambda: rm_fused
+                                  .rule_scores_packed_plain(Qmw, Amw, s_i,
+                                                            cf), reps=3),
+                library_ms=None),
+            "rm_int8": dict(
+                ms=_cuda_ms(torch, lambda: rm_kernel.rule_scores_int8(
+                    Qm, Am, s_f, cf)),
+                plain_ms=_cuda_ms(torch, lambda: rm_kernel
+                                  .rule_scores_int8_plain(Qm, Am, s_f, cf),
+                                  reps=3),
+                library_ms=_cuda_ms(torch, lambda: int_mm_scores(
+                    Qm, Am, s_i, cf))),
+        }
+        for k, v in out.items():
+            by = max(bound[k], key=bound[k].get)
+            v.update(bound_ms=bound[k][by], bound_by=by)
+            print(f"{k} [{B_}, {R_}, {Ip}]: kernel {v['ms']:.4f} ms, plain "
+                  f"{v['plain_ms']:.4f} ms, library {v['library_ms']} ms, "
+                  f"bound {v['bound_ms']:.5f} ms ({by})")
+        return out
+
+    timing.update(time_rule_match(baskets, A8, sizes_f, conf))
+    for k, v in time_rule_match(baskets, A_wide, sizes_wide,
+                                conf_wide).items():
+        timing[k]["wide"] = dict(v, rules=WIDE_RULES)
+
+    # ---- 5. the serving main path, three ways -------------------------
+    queries = [Query.of(np.flatnonzero(row).tolist())
+               for row in T_all[:N_QUERIES]]
+    gc_pause = {"s": 0.0, "t0": 0.0}
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_pause["t0"] = time.perf_counter()
+        else:
+            gc_pause["s"] += time.perf_counter() - gc_pause["t0"]
+
+    def serve(**kw):
+        """One serving path: a warm-up serve on its own engine, then the
+        measured one, with counts zeroed just before and read just after."""
+        cfg = ServingConfig(**kw)
+        RecommendationEngine(index, config=cfg).serve(queries[:64])
+        engine = RecommendationEngine(index, config=cfg)
+        zero_counts()
+        gc_pause["s"] = 0.0
+        results, report = engine.serve(queries)
+        on = read_counts()
+        score_s = sum(p.host_time_s for p in report.ledger.by_kind("map"))
+        print(f"serve {kw or 'default (packed)'}: backend {report.backend}, "
+              f"{report.n_queries} queries in {report.n_batches} batches, "
+              f"cache {report.cache_hits} hit / {report.cache_misses} miss, "
+              f"wall {report.wall_time_s:.4f} s = {report.wall_qps:.0f} "
+              f"QPS, of which scoring calls {score_s:.4f} s, gc pauses "
+              f"{gc_pause['s']:.4f} s; launches {on}")
+        return results, report, on
+
+    paths = {"packed": {}, "mxu": {"tuning": {"variant": "mxu"}},
+             "ref": {"data_plane": "ref"}}
+    runs = {name: [] for name in paths}
+    gc.callbacks.append(on_gc)
+    for name in ("packed", "mxu", "ref", "ref", "mxu", "packed"):
+        runs[name].append(serve(**paths[name]))
+    gc.callbacks.remove(on_gc)
+    for name in ("packed", "mxu"):
+        prof = cProfile.Profile()
+        prof.runcall(RecommendationEngine(
+            index, config=ServingConfig(**paths[name])).serve, queries)
+        top = sorted(pstats.Stats(prof).stats.items(),
+                     key=lambda kv: -kv[1][2])[:6]
+        print(f"host profile, {name} serve (own time): " + "; ".join(
+            f"{Path(f).name}:{line} {fn} {tt * 1e3:.1f} ms"
+            for (f, line, fn), (_, _, tt, _, _) in top))
+    (s_packed, rep_packed, on_packed), (_, _, on_mxu), (_, _, on_ref) = (
+        runs[name][0] for name in paths)
+    launches.update(rm_packed=on_packed["rm_packed"],
+                    rm_int8=on_mxu["rm_int8"])
+    if min(launches["rm_packed"], launches["rm_int8"]) <= 0:
+        raise AssertionError(f"a rule-match kernel was never launched: "
+                             f"{launches}")
+    if (on_packed["rm_int8"] or on_mxu["rm_packed"] or any(on_ref.values())
+            or any(c[k] for c in (on_packed, on_mxu)
+                   for k in ("packed", "int8"))):
+        raise AssertionError("a serving path launched another path's "
+                             "kernel")
+    want = _without_walls(rep_packed)
+    for name, path_runs in runs.items():
+        for results, report, on in path_runs:
+            if results != s_packed:
+                raise AssertionError(f"serving path {name} disagrees on "
+                                     "recommendations")
+            if dict(_without_walls(report), backend="cuda") != want:
+                raise AssertionError(f"serving path {name} disagrees on its "
+                                     "report")
+            if on != path_runs[0][2]:
+                raise AssertionError(f"serving path {name} launched "
+                                     f"{on} then {path_runs[0][2]}")
+    k = rep_packed.k
+    for q, got in zip(queries[:N_ORACLE], s_packed):
+        if got != recommend_bruteforce(packed.rules, q.payload, k):
+            raise AssertionError(f"basket {q.payload}: {got} is not the "
+                                 "brute-force oracle's answer")
+    if not any(s_packed):
+        raise AssertionError("no basket got a recommendation")
+    print(f"serving paths agree: {N_QUERIES} recommendations, "
+          f"{sum(map(bool, s_packed))} non-empty, the first {N_ORACLE} "
+          "equal to recommend_bruteforce")
+
+    # ---- 6. result lines ----------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -284,7 +548,13 @@ def main() -> int:
              "src/repro/kernels/support_count/fused.py:94"),
             ("int8", "support_count_int8",
              "src/repro_torch/csrc/support_count_int8.cu",
-             "src/repro/kernels/support_count/kernel.py:74")):
+             "src/repro/kernels/support_count/kernel.py:74"),
+            ("rm_packed", "rule_match_packed",
+             "src/repro_torch/csrc/rule_match_packed.cu",
+             "src/repro/kernels/rule_match/fused.py:59"),
+            ("rm_int8", "rule_match_int8",
+             "src/repro_torch/csrc/rule_match_int8.cu",
+             "src/repro/kernels/rule_match/kernel.py:72")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))

@@ -25,14 +25,20 @@ sys.modules["jaxlib"] = None
 sys.modules["repro"] = None
 from repro_torch.data.baskets import BasketConfig, generate_baskets
 from repro_torch.pipeline import MarketBasketPipeline, PipelineConfig
+from repro_torch.serving import (Query, RecommendationEngine, RuleIndex,
+                                 ServingConfig)
 T = generate_baskets(BasketConfig(n_tx=300, n_items=24, seed=5))
 res = MarketBasketPipeline(config=PipelineConfig(
     min_support=0.05, n_tiles=4, device="cpu")).run(T)
+engine = RecommendationEngine(RuleIndex.build(res.rules, T.shape[1]),
+                              config=ServingConfig(device="cpu"))
+recs, rep = engine.serve([Query.of(row) for row in T[:16]])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
 assert not bad, bad
-print("MINED", len(res.supports), len(res.rules), res.report.backend)
+print("MINED", len(res.supports), len(res.rules), res.report.backend,
+      sum(map(len, recs)), rep.backend)
 """
 
 
@@ -41,12 +47,14 @@ def test_port_mines_with_jax_and_reference_blocked():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    tag, n_sup, n_rules, backend = out.stdout.split()[-4:]
+    tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
+    assert int(n_recs) > 0 and serving == "ref"
 
 
 def test_no_source_imports_jax_or_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}
