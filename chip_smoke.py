@@ -7,34 +7,48 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build all four kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. build all five kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
    path gives it (one transaction tile × the k=2 candidate batch) and at a
    few ragged shapes, and require exact equality with its plain PyTorch
    version; time the kernel, the plain version and, for the int8 kernel,
    ``torch._int_mm`` plus the compare-and-sum (a yardstick the port never
-   calls);
+   calls); then hold the intersect kernel (the Eclat plane's) exactly
+   against its plain version on random words, bit 31 included, at the
+   shapes the vertical plane gives it (a dense-corpus tile, a sparse-corpus
+   k=1 tile, a whole k=2 slab) and ragged ones, and time it at the first
+   three;
 3. mine a corpus at the scale of IBM Quest T10I4D100K (100,000
    transactions over 1,000 items, min_support 1%) three times — through
    the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref`` data
    plane — and require equal supports and rules, launches of each kernel
    on its path, one device-to-host read per counting round, and supports
    that numpy recounts exactly;
-4. compile the mined rules into a ``RuleIndex`` and hold each rule-match
+4. mine the same corpus through ``make_miner`` with ``algorithm="eclat"``
+   on the intersect kernel and on the plain ``ref`` plane, and with
+   ``algorithm="auto"``, and require the apriori mine's supports and
+   rules, one read per counting round and intersect launches on the
+   kernel paths only; then mine a sparse corpus at the scale of the FIMI
+   ``retail`` dataset (88,162 baskets over 16,470 items) as a
+   ``SparseSlab`` through Eclat on both planes, never densified, with
+   supports that numpy recounts from the CSR slab; print every wall and
+   the host functions with the most own time in one more (profiled) dense
+   Eclat mine;
+5. compile the mined rules into a ``RuleIndex`` and hold each rule-match
    kernel exactly against its plain version at the shapes serving gives
    it (that index against batches of 8 and 64 corpus baskets), at ragged
    shapes, and at a wider index of 16,384 random rules; time both at the
    64-basket shape and the wide one, beside the plain versions and, for
    the int8 kernel, ``torch._int_mm`` plus the compare-and-weight;
-5. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
+6. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
    times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
    scores — and require equal recommendations and reports, launches of
    each kernel on its own path only, and the brute-force oracle's answer
    for the first 512 baskets; print each serve's wall, the part spent in
    scoring calls and in garbage-collector pauses, and the host functions
    with the most own time in one more (profiled) serve per kernel path;
-6. print the card's name and power limit, the ``kernels`` JSON line and,
+7. print the card's name and power limit, the ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -52,15 +66,20 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense int8 tensor-core
-# rate, and 32-bit popcount issue rate per SM per clock (CUDA C++
-# programming guide, arithmetic instruction throughput, compute 9.0).
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks beyond those in repro_torch.launch.roofline: the dense
+# int8 tensor-core rate (NVIDIA data sheet) and the 32-bit popcount issue
+# rate per SM per clock (CUDA C++ programming guide, arithmetic
+# instruction throughput, compute 9.0).
 INT8_OPS_PER_S = 1979e12
 POPC_PER_SM_PER_CLOCK = 16
 
 CORPUS = dict(n_tx=100_000, n_items=1000, seed=0)   # T10I4D100K scale
 MIN_SUPPORT = 0.01
+# FIMI retail scale (Brijs et al., KDD 1999): 88,162 baskets over 16,470
+# items, about 10 items a basket
+SPARSE_CORPUS = dict(n_tx=88_162, n_items=16_470, basket_len=10,
+                     max_item_freq=0.01, seed=0)
+SPARSE_MIN_SUPPORT = 0.005
 N_TILES = 32
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
@@ -120,6 +139,18 @@ def _without_walls(x):
     return x
 
 
+def host_profile(label: str, fn, *args) -> None:
+    """Run ``fn(*args)`` under cProfile and print the six host functions
+    with the most own time."""
+    prof = cProfile.Profile()
+    prof.runcall(fn, *args)
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:6]
+    print(f"host profile, {label} (own time): " + "; ".join(
+        f"{Path(f).name}:{line} {fn_name} {tt * 1e3:.1f} ms"
+        for (f, line, fn_name), (_, _, tt, _, _) in top))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -135,12 +166,16 @@ def main() -> int:
                                            generate_candidates,
                                            itemsets_to_bitmap)
     from repro_torch.core.rules import generate_rules
-    from repro_torch.data.baskets import BasketConfig, generate_baskets
+    from repro_torch.data.baskets import (BasketConfig, generate_baskets,
+                                          sparse_baskets)
+    from repro_torch.data.sparse import SparseSlab
     from repro_torch.kernels import loader
     from repro_torch.kernels.rule_match import fused as rm_fused
     from repro_torch.kernels.rule_match import kernel as rm_kernel
     from repro_torch.kernels.rule_match.ops import rule_topk
-    from repro_torch.kernels.support_count import fused, kernel
+    from repro_torch.kernels.support_count import fused, intersect, kernel
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.mining import EclatMiner, make_miner
     from repro_torch.pipeline import (MarketBasketPipeline, PipelineConfig,
                                       ingest_baskets, uniform_tiles)
     from repro_torch.pipeline.dataplane import pad_candidates
@@ -150,7 +185,8 @@ def main() -> int:
     wrappers = {"packed": fused.support_count_packed,
                 "int8": kernel.support_count_int8,
                 "rm_packed": rm_fused.rule_scores_packed,
-                "rm_int8": rm_kernel.rule_scores_int8}
+                "rm_int8": rm_kernel.rule_scores_int8,
+                "intersect": intersect.intersect_count_words}
 
     def zero_counts():
         for w in wrappers.values():
@@ -168,7 +204,8 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------
     t0 = time.perf_counter()
     logs = loader.build(["support_count_packed", "support_count_int8",
-                         "rule_match_packed", "rule_match_int8"])
+                         "rule_match_packed", "rule_match_int8",
+                         "intersect_count"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -256,10 +293,10 @@ def main() -> int:
     bound = {
         "packed": {"operations": N * M * W / popc_per_s * 1e3,
                    "bytes": (N * W * 4 + M * W * 4 + 2 * M * 4)
-                   / HBM_BYTES_PER_S * 1e3},
+                   / HBM_BW * 1e3},
         "int8": {"operations": 2 * N * M * I / INT8_OPS_PER_S * 1e3,
                  "bytes": (N * I + M * I + 2 * M * 4)
-                 / HBM_BYTES_PER_S * 1e3},
+                 / HBM_BW * 1e3},
     }
     for k, v in timing.items():
         by = max(bound[k], key=bound[k].get)
@@ -269,13 +306,69 @@ def main() -> int:
               f"({by}; {props.multi_processor_count} SMs at "
               f"{clock_hz / 1e6:.0f} MHz)")
 
+    # the intersect kernel at the vertical plane's shapes: W is the
+    # corpus's tid words padded to 128, M a dense-corpus tile (128 rows),
+    # a sparse-corpus k=1 tile and the whole k=2 slab (the join's M rows)
+    def pad128(n):
+        return -(-n // 128) * 128
+
+    w_dense = pad128(-(-n_tx // 32))
+    w_sparse = pad128(-(-SPARSE_CORPUS["n_tx"] // 32))
+    g_words = np.random.default_rng(4)
+
+    def words(m, w):
+        """Random words, about half with bit 31 set, on the card."""
+        return torch.from_numpy(g_words.integers(
+            0, 2**32, size=(m, w), dtype=np.uint32).view(np.int32)).to(dev)
+
+    ix_inputs = {"tile": (128, w_dense), "sparse_tile": (640, w_sparse),
+                 "whole_slab": (M, w_dense)}
+    for key, (m, w) in [*ix_inputs.items(), ("ragged", (1, 4)),
+                        ("ragged", (129, 4)), ("ragged", (1, w_dense)),
+                        ("ragged", (129, w_sparse)), ("ragged", (3, 516))]:
+        a, b = words(m, w), words(m, w)
+        a[0, : w // 2] = -1                       # all 32 bits of a word
+        err["intersect"] = max(err.get("intersect", 0.0), check(
+            intersect.intersect_count_words(a, b),
+            intersect.intersect_count_plain(a, b),
+            f"intersect_count [{m}, {w}]"))
+        if key != "ragged":
+            ix_inputs[key] = (a, b)
+    print("intersect kernel matches its plain version exactly "
+          f"({', '.join(f'{k} {list(v[0].shape)}' for k, v in ix_inputs.items())}"
+          " + 5 ragged shapes)")
+
+    def time_intersect(a, b):
+        m, w = a.shape
+        bnd = {"bytes": (2 * m * w * 4 + 4 * m) / HBM_BW * 1e3,
+               "operations": m * w / popc_per_s * 1e3}
+        by = max(bnd, key=bnd.get)
+        out = dict(
+            ms=_cuda_ms(torch, lambda: intersect.intersect_count_words(a, b)),
+            plain_ms=_cuda_ms(torch, lambda: intersect.intersect_count_plain(
+                a, b), reps=3),
+            library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[m, w])
+        print(f"intersect [{m}, {w}]: kernel {out['ms']:.4f} ms, plain "
+              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
+              f"({by})")
+        return out
+
+    timing["intersect"] = time_intersect(*ix_inputs["tile"])
+    for key in ("whole_slab", "sparse_tile"):
+        timing["intersect"][key] = time_intersect(*ix_inputs[key])
+    del ix_inputs
+
     # ---- 3. the mining main path, three ways --------------------------
+    walls = {}
+
     def mine(**kw):
         cfg = PipelineConfig(min_support=MIN_SUPPORT, n_tiles=N_TILES, **kw)
         t0 = time.perf_counter()
         res = MarketBasketPipeline(config=cfg).run(T_all)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls["apriori " + ("mxu" if "tuning" in kw
+                            else kw.get("data_plane", "packed"))] = wall
         rounds = [(r.k, r.n_candidates, r.n_frequent, r.m_padded)
                   for r in res.report.rounds]
         serial_s = sum(p.host_time_s for p in res.report.ledger.phases
@@ -320,7 +413,7 @@ def main() -> int:
         raise AssertionError(f"a kernel was never launched: {launches}")
     if (on_packed["int8"] or on_mxu["packed"] or any(on_ref.values())
             or any(c[k] for c in (on_packed, on_mxu)
-                   for k in ("rm_packed", "rm_int8"))):
+                   for k in ("rm_packed", "rm_int8", "intersect"))):
         raise AssertionError("a path launched another path's kernel")
     if launches["packed"] != launches["int8"]:
         raise AssertionError("both variants must count the same tiles")
@@ -342,7 +435,114 @@ def main() -> int:
     print(f"mines agree: {len(packed.supports)} itemsets recounted by "
           "numpy, rules regenerated")
 
-    # ---- 4. rule-match kernels against their plain versions ----------
+    # ---- 4. the vertical (Eclat) plane, dense and sparse --------------
+    def mine_eclat(baskets, min_support, label, **kw):
+        """One path through make_miner: counts zeroed just before, read
+        just after; the wall includes auto's density measurement."""
+        cfg = PipelineConfig(min_support=min_support, n_tiles=N_TILES, **kw)
+        zero_counts()
+        t0 = time.perf_counter()
+        miner, choice = make_miner(baskets, config=cfg)
+        res = miner.run(baskets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        on = read_counts()
+        walls[label] = wall
+        led = res.report.ledger
+        columnize = [p.host_time_s for p in led.phases
+                     if p.name == "eclat-columnize"]
+        serial_s = sum(p.host_time_s for p in led.phases
+                       if p.kind == "serial")
+        rounds = [(r.k, r.n_candidates, r.n_frequent) for r in
+                  res.report.rounds]
+        print(f"mine {label}: {type(miner).__name__}, backend "
+              f"{res.report.backend}, rounds (k, candidates, frequent) "
+              f"{rounds}, {len(res.supports)} itemsets, {len(res.rules)} "
+              f"rules, wall {wall:.3f} s, of which serial phases "
+              f"{serial_s:.3f} s (columnize "
+              f"{columnize[0] if columnize else 0.0:.3f} s); launches {on}")
+        maps = led.by_kind("map")
+        if not maps or any(p.syncs != 1 for p in maps):
+            raise AssertionError("pipelined rounds must read back once "
+                                 f"each: {[(p.name, p.syncs) for p in maps]}")
+        return res, on, choice
+
+    got = make_miner(small, config=PipelineConfig(
+        min_support=0.05, n_tiles=4, algorithm="eclat"))[0].run(small)
+    if got.supports != apriori_bruteforce(small, 15, max_k=24):
+        raise AssertionError("small eclat mine differs from "
+                             "apriori_bruteforce")
+    print("small corpus mined by eclat on the card = apriori_bruteforce")
+
+    eclat, on_eclat, _ = mine_eclat(T_all, MIN_SUPPORT, "eclat cuda",
+                                    algorithm="eclat")
+    eclat_ref, on_eclat_ref, _ = mine_eclat(
+        T_all, MIN_SUPPORT, "eclat ref", algorithm="eclat", data_plane="ref")
+    auto, on_auto, choice = mine_eclat(T_all, MIN_SUPPORT, "auto",
+                                       algorithm="auto")
+    print(choice.summary())
+    for name, res in (("eclat cuda", eclat), ("eclat ref", eclat_ref),
+                      ("auto", auto)):
+        if res.supports != packed.supports or res.rules != packed.rules:
+            raise AssertionError(f"{name} mine differs from apriori packed")
+    launches["intersect"] = on_eclat["intersect"]
+    if launches["intersect"] <= 0:
+        raise AssertionError("the intersect kernel was never launched")
+    if (any(n for k, n in on_eclat.items() if k != "intersect")
+            or any(on_eclat_ref.values())
+            or on_auto != (on_eclat if choice.algorithm == "eclat"
+                           else on_packed)):
+        raise AssertionError(f"eclat paths launched {on_eclat}, "
+                             f"{on_eclat_ref}, auto {on_auto}")
+    print("dense walls: " + ", ".join(f"{k} {v:.3f} s"
+                                      for k, v in walls.items()))
+    host_profile("eclat cuda mine", EclatMiner(config=PipelineConfig(
+        min_support=MIN_SUPPORT, n_tiles=N_TILES)).run, T_all)
+
+    t0 = time.perf_counter()
+    slab = SparseSlab.from_baskets(sparse_baskets(**SPARSE_CORPUS),
+                                   n_items=SPARSE_CORPUS["n_items"])
+    print(f"sparse corpus: {slab.n_tx} x {slab.n_items}, nnz {slab.nnz}, "
+          f"built in {time.perf_counter() - t0:.2f} s")
+
+    def no_densify(self):
+        raise AssertionError("the sparse slab was densified")
+
+    to_dense, SparseSlab.to_dense = SparseSlab.to_dense, no_densify
+    sparse, on_sparse, _ = mine_eclat(slab, SPARSE_MIN_SUPPORT,
+                                      "sparse eclat cuda", algorithm="eclat")
+    sparse_ref, on_sparse_ref, _ = mine_eclat(
+        slab, SPARSE_MIN_SUPPORT, "sparse eclat ref", algorithm="eclat",
+        data_plane="ref")
+    SparseSlab.to_dense = to_dense
+    if (sparse.supports != sparse_ref.supports
+            or sparse.rules != sparse_ref.rules):
+        raise AssertionError("sparse eclat mines differ between planes")
+    if (on_sparse["intersect"] <= 0 or any(on_sparse_ref.values())
+            or any(n for k, n in on_sparse.items() if k != "intersect")):
+        raise AssertionError(f"sparse paths launched {on_sparse}, "
+                             f"{on_sparse_ref}")
+    tx_of_row = np.repeat(np.arange(slab.n_tx), np.diff(slab.indptr))
+    tids = {}
+    for itemset, sup in sparse.supports.items():
+        common = None
+        for i in itemset:
+            if i not in tids:
+                tids[i] = tx_of_row[slab.indices == i]
+            common = tids[i] if common is None else np.intersect1d(
+                common, tids[i], assume_unique=True)
+        if len(common) != sup:
+            raise AssertionError(f"sparse support of {itemset} is not {sup}")
+    if not sparse.rules or max(len(s) for s in sparse.supports) < 3:
+        raise AssertionError("the sparse corpus must mine rules and "
+                             "3-itemsets")
+    print(f"sparse mines agree: {len(sparse.supports)} itemsets recounted "
+          f"from the CSR slab by numpy; walls cuda "
+          f"{walls['sparse eclat cuda']:.3f} s, ref "
+          f"{walls['sparse eclat ref']:.3f} s")
+    del slab, tx_of_row
+
+    # ---- 5. rule-match kernels against their plain versions ----------
     index = RuleIndex.build(packed.rules, n_items_raw)
     R, Ip = index.n_rows_padded, index.n_items_padded
     print(f"rule index: {index.n_rows} rows from {index.n_rules} rules, "
@@ -422,11 +622,11 @@ def main() -> int:
         bound = {
             "rm_packed": {"operations": B_ * R_ * W_ / popc_per_s * 1e3,
                           "bytes": (B_ * W_ * 4 + R_ * W_ * 4 + 2 * R_ * 4
-                                    + B_ * R_ * 4) / HBM_BYTES_PER_S * 1e3},
+                                    + B_ * R_ * 4) / HBM_BW * 1e3},
             "rm_int8": {"operations": 2 * B_ * R_ * Ip / INT8_OPS_PER_S
                         * 1e3,
                         "bytes": (B_ * Ip + R_ * Ip + 2 * R_ * 4
-                                  + B_ * R_ * 4) / HBM_BYTES_PER_S * 1e3},
+                                  + B_ * R_ * 4) / HBM_BW * 1e3},
         }
         out = {
             "rm_packed": dict(
@@ -458,7 +658,7 @@ def main() -> int:
                                 conf_wide).items():
         timing[k]["wide"] = dict(v, rules=WIDE_RULES)
 
-    # ---- 5. the serving main path, three ways -------------------------
+    # ---- 6. the serving main path, three ways -------------------------
     queries = [Query.of(np.flatnonzero(row).tolist())
                for row in T_all[:N_QUERIES]]
     gc_pause = {"s": 0.0, "t0": 0.0}
@@ -496,14 +696,8 @@ def main() -> int:
         runs[name].append(serve(**paths[name]))
     gc.callbacks.remove(on_gc)
     for name in ("packed", "mxu"):
-        prof = cProfile.Profile()
-        prof.runcall(RecommendationEngine(
+        host_profile(f"{name} serve", RecommendationEngine(
             index, config=ServingConfig(**paths[name])).serve, queries)
-        top = sorted(pstats.Stats(prof).stats.items(),
-                     key=lambda kv: -kv[1][2])[:6]
-        print(f"host profile, {name} serve (own time): " + "; ".join(
-            f"{Path(f).name}:{line} {fn} {tt * 1e3:.1f} ms"
-            for (f, line, fn), (_, _, tt, _, _) in top))
     (s_packed, rep_packed, on_packed), (_, _, on_mxu), (_, _, on_ref) = (
         runs[name][0] for name in paths)
     launches.update(rm_packed=on_packed["rm_packed"],
@@ -513,7 +707,7 @@ def main() -> int:
                              f"{launches}")
     if (on_packed["rm_int8"] or on_mxu["rm_packed"] or any(on_ref.values())
             or any(c[k] for c in (on_packed, on_mxu)
-                   for k in ("packed", "int8"))):
+                   for k in ("packed", "int8", "intersect"))):
         raise AssertionError("a serving path launched another path's "
                              "kernel")
     want = _without_walls(rep_packed)
@@ -539,7 +733,7 @@ def main() -> int:
           f"{sum(map(bool, s_packed))} non-empty, the first {N_ORACLE} "
           "equal to recommend_bruteforce")
 
-    # ---- 6. result lines ----------------------------------------------
+    # ---- 7. result lines ----------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -554,7 +748,10 @@ def main() -> int:
              "src/repro/kernels/rule_match/fused.py:59"),
             ("rm_int8", "rule_match_int8",
              "src/repro_torch/csrc/rule_match_int8.cu",
-             "src/repro/kernels/rule_match/kernel.py:72")):
+             "src/repro/kernels/rule_match/kernel.py:72"),
+            ("intersect", "intersect_count",
+             "src/repro_torch/csrc/intersect_count.cu",
+             "src/repro/kernels/support_count/intersect.py:63")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))

@@ -1,5 +1,5 @@
-"""Public wrapper for the support-count kernel family: padding and variant
-dispatch.
+"""Public wrappers for the support-count kernel family: padding and variant
+dispatch, and the Eclat plane's ``intersect_count``.
 
 Two kernels compute the same counts bit-identically:
 
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.support_count.fused import (pack_words,
                                                      support_count_packed)
+from repro_torch.kernels.support_count.intersect import intersect_count_words
 from repro_torch.kernels.support_count.kernel import support_count_int8
 
 VARIANTS = ("packed", "mxu")
@@ -70,3 +71,22 @@ def support_count(T: torch.Tensor, C: torch.Tensor, *,
     else:
         out = support_count_int8(T, C, sizes)
     return out[:M0]
+
+
+def intersect_count(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Row-aligned tid-slab intersection counts [M] int32 (Eclat primitive).
+
+    A, B: [M, W] packed tid-list words (int32 bit patterns, same device):
+    row m of the output is |tidset(A[m]) ∩ tidset(B[m])|.  Pads M→128·,
+    W→128· with zero words (inert: popcount(0) == 0) and slices padded
+    rows away.
+    """
+    if A.shape != B.shape:
+        raise ValueError(f"slab shapes differ: {tuple(A.shape)} vs "
+                         f"{tuple(B.shape)}")
+    M0 = A.shape[0]
+    if M0 == 0:          # empty candidate level: nothing to intersect
+        return torch.zeros(0, dtype=torch.int32, device=A.device)
+    A = _pad_to(_pad_to(A, 1, 128), 0, 128).contiguous()
+    B = _pad_to(_pad_to(B, 1, 128), 0, 128).contiguous()
+    return intersect_count_words(A, B)[:M0]

@@ -1,7 +1,9 @@
-"""Plain PyTorch oracle for the support-count kernels."""
+"""Plain PyTorch oracles for the support-count and intersect kernels."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.support_count.fused import popcount32
 
 # float32 holds every integer below 2**24 exactly, so a float32 product of
 # 0/1 matrices is an exact count up to this many items.  0 and 1 are exact
@@ -24,3 +26,16 @@ def support_count_ref(T: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     dots = T.to(torch.float32) @ Cf.T                                # [N, M]
     sizes = Cf.sum(dim=1)                                            # [M]
     return (dots == sizes[None, :]).sum(dim=0, dtype=torch.int32)    # [M]
+
+
+def intersect_count_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A, B: [M, W] int32 words holding uint32 tid-list bit patterns (bit b
+    of word w = transaction 32w+b).
+
+    counts[m] = |tidset(A[m]) ∩ tidset(B[m])| = Σ_w popcount(A[m,w] & B[m,w]),
+    as ``[M]`` int32.  ``popcount32`` takes values in [0, 2**32) and a word
+    with bit 31 set is a negative int32, so the AND is widened to int64 and
+    masked to its 32 bits first.
+    """
+    inter = (A & B).to(torch.int64) & 0xFFFFFFFF                     # [M, W]
+    return popcount32(inter).sum(dim=1, dtype=torch.int32)           # [M]

@@ -1,0 +1,19 @@
+"""Mining backends: algorithm formulations behind one protocol.
+
+The horizontal (Apriori) plane lives in :mod:`repro_torch.pipeline`; this
+package adds the vertical (Eclat) formulation and the cost-model
+auto-selector that picks between them per dataset.
+"""
+from repro_torch.mining.backend import (ALGORITHMS, MiningBackend, make_miner,
+                                        resolve_algorithm)
+from repro_torch.mining.eclat.miner import EclatMiner
+from repro_torch.mining.select import (AlgorithmChoice, AlgorithmCostModel,
+                                       local_min_support, partition_stats,
+                                       select_algorithm,
+                                       select_partition_algorithm)
+
+__all__ = [
+    "ALGORITHMS", "AlgorithmChoice", "AlgorithmCostModel", "EclatMiner",
+    "MiningBackend", "local_min_support", "make_miner", "partition_stats",
+    "resolve_algorithm", "select_algorithm", "select_partition_algorithm",
+]

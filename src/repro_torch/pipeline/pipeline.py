@@ -52,6 +52,10 @@ from repro_torch.runtime.policies import check_policy_name
 
 Baskets = Union[np.ndarray, SparseSlab, Sequence[Sequence[int]]]
 
+# mining formulations ``PipelineConfig.algorithm`` may name (resolved by
+# repro_torch.mining.make_miner)
+ALGORITHMS = ("apriori", "eclat", "auto")
+
 
 def ingest_baskets(baskets: Baskets) -> Tuple[np.ndarray, int, int]:
     """Validate + pack baskets into the kernel bitmap layout.
@@ -89,6 +93,12 @@ class PipelineConfig:
     min_confidence: float = 0.6
     min_lift: float = 0.0
     max_k: int = 0                  # 0 = mine until no candidates survive
+    # Mining backend: "apriori" (horizontal bitmap rounds), "eclat"
+    # (vertical tid-list intersections), or "auto" (the algorithm cost
+    # model picks per dataset from measured density/sparsity features —
+    # see repro_torch.mining.select).  Read by make_miner; the pipeline
+    # itself always runs Apriori.
+    algorithm: str = "apriori"
     # Round execution: "pipelined" (default) enqueues every tile kernel
     # eagerly, folds partial counts into an in-place device accumulator and
     # reads back one packed vector per round (single sync point; candidate
@@ -119,6 +129,9 @@ class PipelineConfig:
 
     def __post_init__(self):
         check_policy_name(self.policy)
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(f"unknown mining algorithm {self.algorithm!r} "
+                             f"(known: {', '.join(ALGORITHMS)})")
         if (torch.device(self.device).type == "cuda"
                 and not torch.cuda.is_available()):
             raise RuntimeError(

@@ -1,7 +1,7 @@
 """Shared scheduling runtime: one MBScheduler + PowerModel + phase ledger
 behind every execution plane, with pluggable static/dynamic switching
 policies (paper §VI)."""
-from repro_torch.runtime.donation import SlabPool, donated_add
+from repro_torch.runtime.donation import SlabPool, donated_add, donated_and
 from repro_torch.runtime.ledger import ExecLedger, PhaseRecord
 from repro_torch.runtime.policies import (POLICY_NAMES, DynamicPolicy,
                                           StaticPolicy, SwitchingPolicy,
@@ -14,5 +14,5 @@ __all__ = [
     "POLICY_NAMES", "DynamicPolicy", "ExecLedger", "LedgerTotals",
     "MeasuredPhase", "PhaseRecord", "PlaneReport", "Runtime", "SlabPool",
     "StaticPolicy", "SwitchingPolicy", "TransferMeter", "TransferStats",
-    "donated_add", "resolve_policy", "resolve_power",
+    "donated_add", "donated_and", "resolve_policy", "resolve_power",
 ]

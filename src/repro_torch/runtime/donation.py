@@ -6,7 +6,8 @@ lets the port say so directly: :func:`donated_add` adds in place into the
 accumulator, and :class:`SlabPool` hands the same zeroed slab back to the
 next round whose bucket shape repeats — the common case under
 ``m_bucket`` rounding, where consecutive Apriori levels share a padded
-candidate shape.
+candidate shape.  :func:`donated_and` writes the Eclat plane's survivor
+tidsets into one of the two dead parent slabs.
 """
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ def donated_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     the running sum is written into it (``acc.add_(x)``).  Nothing here
     synchronizes, so all tile kernels of a round enqueue eagerly."""
     return acc.add_(x)
+
+
+def donated_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """In-place survivor intersection (the Eclat plane's next-level slab):
+    both gathered parent slabs are dead after the AND, so the result is
+    written into ``a``."""
+    return torch.bitwise_and(a, b, out=a)
 
 
 class SlabPool:

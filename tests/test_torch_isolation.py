@@ -24,6 +24,7 @@ sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["repro"] = None
 from repro_torch.data.baskets import BasketConfig, generate_baskets
+from repro_torch.mining import make_miner
 from repro_torch.pipeline import MarketBasketPipeline, PipelineConfig
 from repro_torch.serving import (Query, RecommendationEngine, RuleIndex,
                                  ServingConfig)
@@ -33,6 +34,13 @@ res = MarketBasketPipeline(config=PipelineConfig(
 engine = RecommendationEngine(RuleIndex.build(res.rules, T.shape[1]),
                               config=ServingConfig(device="cpu"))
 recs, rep = engine.serve([Query.of(row) for row in T[:16]])
+for algorithm in ("eclat", "auto"):
+    miner, choice = make_miner(T, config=PipelineConfig(
+        min_support=0.05, n_tiles=4, device="cpu", algorithm=algorithm))
+    mined = miner.run(T)
+    assert mined.supports == res.supports and mined.rules == res.rules
+    assert (choice is None) == (algorithm == "eclat")
+    print("ALGORITHM", algorithm, mined.report.algorithm)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
@@ -47,6 +55,9 @@ def test_port_mines_with_jax_and_reference_blocked():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    algos = [ln.split()[1:] for ln in out.stdout.splitlines()
+             if ln.startswith("ALGORITHM")]
+    assert algos[0] == ["eclat", "eclat"] and algos[1][0] == "auto"
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
