@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build all five kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. build all six kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
    path gives it (one transaction tile × the k=2 candidate batch) and at a
@@ -34,7 +34,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``SparseSlab`` through Eclat on both planes, never densified, with
    supports that numpy recounts from the CSR slab; print every wall and
    the host functions with the most own time in one more (profiled) dense
-   Eclat mine;
+   Eclat mine; then, on the dense corpus and on the reference's B11
+   corpus (8,192 x 96, seed 3, min_support 0.02, 16 tiles), time the
+   density scan and mine through apriori, Eclat and ``auto`` three times
+   each, in turns, and print the columnize times, every wall and the
+   ratio of auto's median wall to the best explicit one (B11's gate is
+   1.1; printed, not enforced);
 5. compile the mined rules into a ``RuleIndex`` and hold each rule-match
    kernel exactly against its plain version at the shapes serving gives
    it (that index against batches of 8 and 64 corpus baskets), at ragged
@@ -48,7 +53,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    for the first 512 baskets; print each serve's wall, the part spent in
    scoring calls and in garbage-collector pauses, and the host functions
    with the most own time in one more (profiled) serve per kernel path;
-7. print the card's name and power limit, the ``kernels`` JSON line and,
+7. the LM serving path: hold the flash-attention kernel against its plain
+   version (2e-5 in float32, 2e-2 in bf16) at gemma3-1b's head shape
+   [4, 2048, 4/1, 256] with windows 512 and 0 in both types, hymba-1.5b's
+   [1, 2048, 25/5, 64] with window 1024, the smoke shapes (hd 16) and
+   ragged lengths (77, 1000); time it at gemma3-1b's two layer shapes in
+   bf16 beside the plain version and ``scaled_dot_product_attention`` (a
+   yardstick the port never calls) and its bound; draw gemma3-1b at full
+   width (26 layers, d 1,152, vocab 262,144) in bf16 on the card and run
+   ``make_prefill_step`` at [4 x 2048] tokens, requiring exactly 26 flash
+   launches; cast the weights to float32 and require the prefill's
+   last-position logits at [2 x 640] to match ``prefill_into_cache`` (plain
+   attention over the KV cache, no kernel) within a relative 1e-3, with
+   equal argmax tokens; run ``serve_demo(smoke=False)`` twice and require
+   identical in-range greedy tokens and no kernel launch;
+8. print the card's name and power limit, the ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -80,6 +99,10 @@ MIN_SUPPORT = 0.01
 SPARSE_CORPUS = dict(n_tx=88_162, n_items=16_470, basket_len=10,
                      max_item_freq=0.01, seed=0)
 SPARSE_MIN_SUPPORT = 0.005
+# the reference's B11 corpus (benchmarks/bench_algorithms.py)
+B11_CORPUS = dict(n_tx=8192, n_items=96, seed=3)
+B11_MIN_SUPPORT = 0.02
+B11_N_TILES = 16
 N_TILES = 32
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
@@ -151,6 +174,211 @@ def host_profile(label: str, fn, *args) -> None:
         for (f, line, fn_name), (_, _, tt, _, _) in top))
 
 
+def _live_pairs(S: int, window: int) -> int:
+    """Σ over queries of the keys a causal (windowed) row attends to."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
+    """Phase 7: the flash kernel against its plain version and timed, then
+    gemma3-1b at full width through make_prefill_step, the decode path and
+    serve_demo.  Returns the kernel's row of the ``kernels`` line."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.serve import prefill_into_cache, serve_demo
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 2e-5, bf16: 2e-2}         # tests/test_kernels.py:61
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def qkv(B, S, H, KV, hd, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+    # -- the kernel against its plain version ---------------------------
+    max_err = 0.0
+    cases = [("gemma3-1b", 4, 2048, 4, 1, 256, w, dt)
+             for w in (512, 0) for dt in (bf16, f32)]
+    cases += [("hymba-1.5b", 1, 2048, 25, 5, 64, 1024, dt)
+              for dt in (bf16, f32)]
+    cases += [("smoke", 2, 40, 4, 1, 16, w, dt) for w in (16, 0)
+              for dt in (bf16, f32)]
+    cases += [("ragged", 1, 77, 4, 2, 64, 0, f32),
+              ("ragged", 2, 77, 8, 8, 128, 16, bf16),
+              ("ragged", 1, 1000, 4, 4, 32, 100, f32),
+              ("ragged", 2, 1000, 4, 1, 256, 512, bf16)]
+    for name, B, S, H, KV, hd, w, dt in cases:
+        q, k, v = qkv(B, S, H, KV, hd, dt)
+        got = flash.flash_attention_fwd(q, k, v, window=w).float()
+        want = flash.flash_attention_plain(q, k, v, window=w).float()
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        bad = int((diff > tol[dt] + tol[dt] * want.abs()).sum())
+        e = float(diff.max())
+        print(f"flash_attention {name} [B {B}, S {S}, H {H}, KV {KV}, hd "
+              f"{hd}] window {w} {str(dt)[6:]}: max abs err {e:.3g} "
+              f"(tolerance {tol[dt]} + {tol[dt]}·|plain|)")
+        if bad or not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {name}: {bad} values "
+                                 "differ from the plain version")
+        max_err = max(max_err, e)
+        del q, k, v, got, want, diff
+
+    # -- timed at gemma3-1b's two layer shapes (bf16, the model's type) --
+    B, S, H, KV, hd = 4, 2048, 4, 1, 256
+    q, k, v = qkv(B, S, H, KV, hd, bf16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    idx = torch.arange(S, device=dev)
+    timing = {}
+    for w in (512, 0):
+        if w:
+            mask = (idx[None, :] <= idx[:, None]) & (
+                idx[None, :] > idx[:, None] - w)
+
+            def sdpa(mask=mask):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        plain = flash.flash_attention_plain(q, k, v, window=w).float()
+        e = float((sdpa().transpose(1, 2).float() - plain).abs().max())
+        flops = 4 * B * H * hd * _live_pairs(S, w)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bnd = {"operations": flops / PEAK_FLOPS * 1e3,
+               "bytes": nbytes / HBM_BW * 1e3}
+        by = max(bnd, key=bnd.get)
+        t = dict(
+            ms=_cuda_ms(torch, lambda w=w: flash.flash_attention_fwd(
+                q, k, v, window=w)),
+            plain_ms=_cuda_ms(torch, lambda w=w: flash.flash_attention_plain(
+                q, k, v, window=w), reps=3),
+            library_ms=_cuda_ms(torch, sdpa),
+            bound_ms=bnd[by], bound_by=by, window=w,
+            shape=[B, S, H, KV, hd])
+        print(f"flash_attention [{B}, {S}, {H}/{KV}, {hd}] window {w} bf16: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['library_ms']:.4f} ms (max abs err vs plain {e:.3g}), "
+              f"bound {t['bound_ms']:.4f} ms ({by}; {flops:.3g} flops, "
+              f"{nbytes} bytes)")
+        timing[w] = t
+    del q, k, v, qt, kt, vt, mask, plain
+
+    # -- full-width prefill through make_prefill_step -------------------
+    cfg = get_config("gemma3-1b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"gemma3-1b: {n_params} parameters in {cfg.param_dtype} drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    if n_params != cfg.param_count() + cfg.d_model:      # + final_ln
+        raise AssertionError(f"{n_params} parameters")
+    windows = [0 if (i + 1) % cfg.global_every == 0 else cfg.local_window
+               for i in range(cfg.n_layers)]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (4, 2048))).to(dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tokens})                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    on = read_counts()
+    if on["flash"] != cfg.n_layers or any(
+            n for key, n in on.items() if key != "flash"):
+        raise AssertionError(f"a full-width prefill launched {on}; want "
+                             f"{cfg.n_layers} flash launches only")
+    if (logits.shape != (4, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite [4, V]")
+    kernel_ms = sum(timing[w]["ms"] for w in windows)
+    print(f"prefill gemma3-1b [4 x 2048] bf16: wall {wall * 1e3:.2f} ms, "
+          f"{4 * 2048 / wall:.0f} tokens/s, {on['flash']} flash launches; "
+          f"the kernel {kernel_ms:.2f} ms = {kernel_ms / (wall * 1e3):.1%} "
+          f"of the wall; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    launches = on["flash"]
+
+    # -- the prefill against the decode path, in float32 ----------------
+    REL_TOL = 1e-3     # max |prefill - decode| / max |decode|, float32
+    cfg32 = cfg.replace(param_dtype="float32", activ_dtype="float32")
+
+    def to_f32(tree):
+        return ({key: to_f32(val) for key, val in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+    params32 = to_f32(params)
+    del params, logits
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, 640))).to(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    by_prefill = make_prefill_step(cfg32)(params32, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    on_prefill = read_counts()
+    zero_counts()
+    t0 = time.perf_counter()
+    by_decode, _ = prefill_into_cache(params32, cfg32, tokens, 640)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    on_decode = read_counts()
+    rel = float((by_prefill - by_decode).abs().max()
+                / by_decode.abs().max())
+    same = bool((by_prefill.argmax(-1) == by_decode.argmax(-1)).all())
+    print(f"float32 [2 x 640]: make_prefill_step {t_prefill:.3f} s "
+          f"({on_prefill['flash']} flash launches) against "
+          f"prefill_into_cache {t_decode:.3f} s ({on_decode['flash']}): "
+          f"relative max error {rel:.3g} (tolerance {REL_TOL}), argmax "
+          f"tokens {'equal' if same else 'DIFFER'}")
+    if (rel > REL_TOL or not same or on_prefill["flash"] != cfg.n_layers
+            or on_decode["flash"]):
+        raise AssertionError("the prefill and the decode path disagree")
+    del params32, by_prefill, by_decode
+    torch.cuda.empty_cache()
+
+    # -- serve_demo at full width, twice ---------------------------------
+    served = []
+    for _ in range(2):
+        zero_counts()
+        out = serve_demo("gemma3-1b", smoke=False, batch=4, prompt_len=32,
+                         new_tokens=32, device="cuda")
+        on = read_counts()
+        toks = out["tokens"]
+        print(f"serve_demo gemma3-1b full width: prefill "
+              f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s, "
+              f"{out['tok_per_s']:.1f} tok/s; launches {on}")
+        if any(on.values()):
+            raise AssertionError("serve_demo decodes with plain attention "
+                                 f"only, but launched {on}")
+        if toks.shape != (4, 32) or not ((toks >= 0)
+                                         & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"serve_demo tokens {toks.shape} out of "
+                                 "range")
+        served.append(toks)
+    if not np.array_equal(*served):
+        raise AssertionError("two greedy serve_demo runs disagree")
+    print("serve_demo: identical greedy tokens twice")
+
+    row = dict(timing[512], launches=launches, max_abs_err=max_err)
+    row["global"] = timing[0]
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -168,8 +396,9 @@ def main() -> int:
     from repro_torch.core.rules import generate_rules
     from repro_torch.data.baskets import (BasketConfig, generate_baskets,
                                           sparse_baskets)
-    from repro_torch.data.sparse import SparseSlab
+    from repro_torch.data.sparse import SparseSlab, density_stats
     from repro_torch.kernels import loader
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.rule_match import fused as rm_fused
     from repro_torch.kernels.rule_match import kernel as rm_kernel
     from repro_torch.kernels.rule_match.ops import rule_topk
@@ -186,7 +415,8 @@ def main() -> int:
                 "int8": kernel.support_count_int8,
                 "rm_packed": rm_fused.rule_scores_packed,
                 "rm_int8": rm_kernel.rule_scores_int8,
-                "intersect": intersect.intersect_count_words}
+                "intersect": intersect.intersect_count_words,
+                "flash": flash.flash_attention_fwd}
 
     def zero_counts():
         for w in wrappers.values():
@@ -205,7 +435,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = loader.build(["support_count_packed", "support_count_int8",
                          "rule_match_packed", "rule_match_int8",
-                         "intersect_count"])
+                         "intersect_count", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -436,10 +666,10 @@ def main() -> int:
           "numpy, rules regenerated")
 
     # ---- 4. the vertical (Eclat) plane, dense and sparse --------------
-    def mine_eclat(baskets, min_support, label, **kw):
+    def mine_eclat(baskets, min_support, label, n_tiles=N_TILES, **kw):
         """One path through make_miner: counts zeroed just before, read
         just after; the wall includes auto's density measurement."""
-        cfg = PipelineConfig(min_support=min_support, n_tiles=N_TILES, **kw)
+        cfg = PipelineConfig(min_support=min_support, n_tiles=n_tiles, **kw)
         zero_counts()
         t0 = time.perf_counter()
         miner, choice = make_miner(baskets, config=cfg)
@@ -465,7 +695,43 @@ def main() -> int:
         if not maps or any(p.syncs != 1 for p in maps):
             raise AssertionError("pipelined rounds must read back once "
                                  f"each: {[(p.name, p.syncs) for p in maps]}")
+        host_s[label] = columnize[0] if columnize else 0.0
         return res, on, choice
+
+    host_s = {}
+
+    def router_ratio(baskets, min_support, label, n_tiles=N_TILES):
+        """The density scan's time, then apriori, Eclat and auto through
+        make_miner three times each, in turns, as the reference's B11
+        measures them; prints each wall, Eclat's columnize times and the
+        ratio of auto's median wall to the best explicit median (B11's
+        gate is 1.1), and returns that ratio."""
+        t0 = time.perf_counter()
+        stats = density_stats(baskets)
+        scan_s = time.perf_counter() - t0
+        got, order = {}, ("apriori", "eclat", "auto")
+        for algorithm in order + order[::-1] + order:
+            name = f"{label} {algorithm}"
+            res, _, _ = mine_eclat(baskets, min_support, name,
+                                   n_tiles=n_tiles, algorithm=algorithm)
+            if (res.supports, res.rules) != got.get("answer", (
+                    res.supports, res.rules)):
+                raise AssertionError(f"{name} mines another answer")
+            got["answer"] = (res.supports, res.rules)
+            got.setdefault(algorithm, []).append(
+                (walls[name], host_s[name]))
+        median = {a: float(np.median([w for w, _ in got[a]]))
+                  for a in order}
+        ratio = median["auto"] / min(median["apriori"], median["eclat"])
+        print(f"router {label} ({stats.summary()}): density scan "
+              f"{scan_s:.4f} s; eclat columnize " + " / ".join(
+                  f"{c:.4f}" for _, c in got["eclat"]) + " s; walls "
+              + "; ".join(f"{a} " + " / ".join(f"{w:.4f}" for w, _ in
+                                               got[a]) + " s"
+                          for a in order)
+              + f"; auto / best explicit = {ratio:.3f} (medians; B11 "
+              "gate 1.1)")
+        return ratio
 
     got = make_miner(small, config=PipelineConfig(
         min_support=0.05, n_tiles=4, algorithm="eclat"))[0].run(small)
@@ -498,6 +764,11 @@ def main() -> int:
                                       for k, v in walls.items()))
     host_profile("eclat cuda mine", EclatMiner(config=PipelineConfig(
         min_support=MIN_SUPPORT, n_tiles=N_TILES)).run, T_all)
+    ratios = {"dense": router_ratio(T_all, MIN_SUPPORT, "dense")}
+    T_b11 = generate_baskets(BasketConfig(**B11_CORPUS))
+    ratios["b11"] = router_ratio(T_b11, B11_MIN_SUPPORT, "b11",
+                                 n_tiles=B11_N_TILES)
+    del T_b11
 
     t0 = time.perf_counter()
     slab = SparseSlab.from_baskets(sparse_baskets(**SPARSE_CORPUS),
@@ -733,7 +1004,13 @@ def main() -> int:
           f"{sum(map(bool, s_packed))} non-empty, the first {N_ORACLE} "
           "equal to recommend_bruteforce")
 
-    # ---- 7. result lines ----------------------------------------------
+    # ---- 7. the LM serving path (gemma3-1b at full width) --------------
+    lm = lm_phase(torch, np, dev, zero_counts, read_counts)
+    launches["flash"] = lm.pop("launches")
+    err["flash"] = lm.pop("max_abs_err")
+    timing["flash"] = lm
+
+    # ---- 8. result lines ----------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -751,7 +1028,10 @@ def main() -> int:
              "src/repro/kernels/rule_match/kernel.py:72"),
             ("intersect", "intersect_count",
              "src/repro_torch/csrc/intersect_count.cu",
-             "src/repro/kernels/support_count/intersect.py:63")):
+             "src/repro/kernels/support_count/intersect.py:63"),
+            ("flash", "flash_attention",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))

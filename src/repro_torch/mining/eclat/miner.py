@@ -107,8 +107,9 @@ class EclatMiner:
             return (baskets.tid_columns(), baskets.n_items, baskets.n_tx,
                     baskets.nnz)
         T, n_items_raw, n_tx_raw = ingest_baskets(baskets)
+        # T is 0/1 (validated by ingest): its nonzeros are its sum
         return (pack_tid_columns(T), n_items_raw, n_tx_raw,
-                int(np.asarray(T, dtype=np.int64).sum()))
+                np.count_nonzero(T))
 
     def _count(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         """Row-aligned intersection counts [M] int32 (backend-dispatched)."""
@@ -228,7 +229,9 @@ class EclatMiner:
         if isinstance(baskets, SparseSlab):
             nnz0, ni0, ntx0 = baskets.nnz, baskets.n_items, baskets.n_tx
         elif isinstance(baskets, np.ndarray):
-            nnz0 = int(np.asarray(baskets, dtype=np.int64).sum())
+            # equal to the sum for a 0/1 bitmap; any other raises in
+            # columnize
+            nnz0 = np.count_nonzero(baskets)
             ntx0, ni0 = baskets.shape
         else:
             nnz0 = sum(len(set(tx)) for tx in baskets)

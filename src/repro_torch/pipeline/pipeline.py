@@ -42,7 +42,7 @@ from repro_torch.core.power import PowerModel
 from repro_torch.core.rules import Rule, generate_rules
 from repro_torch.core.scheduler import MBScheduler, TaskSpec
 from repro_torch.data.baskets import pack_transactions, pad_items
-from repro_torch.data.sparse import SparseSlab
+from repro_torch.data.sparse import SparseSlab, is_binary
 from repro_torch.pipeline.dataplane import DataPlane, uniform_tiles
 from repro_torch.pipeline.devgen import DeviceLattice
 from repro_torch.pipeline.report import PipelineReport, RoundReport
@@ -74,7 +74,7 @@ def ingest_baskets(baskets: Baskets) -> Tuple[np.ndarray, int, int]:
         # validate BEFORE the uint8 cast: casting would truncate floats
         # (0.9 -> 0) and wrap negatives, hiding bad input behind an
         # empty-but-plausible mining result
-        if baskets.size and not ((baskets == 0) | (baskets == 1)).all():
+        if not is_binary(baskets):
             raise ValueError("bitmap must contain only 0/1 — pass "
                              "transaction lists for count-style data")
         T = baskets.astype(np.uint8, copy=False)

@@ -21,6 +21,8 @@ from repro.data.baskets import BasketConfig as RefBasketConfig  # noqa: E402
 from repro.data.baskets import generate_baskets as ref_generate  # noqa: E402
 from repro.data.sparse import SparseSlab as RefSlab  # noqa: E402
 from repro.data.sparse import density_stats as ref_density_stats  # noqa: E402
+from repro.data.sparse import (  # noqa: E402
+    pack_tid_columns as ref_pack_tid_columns)
 from repro.launch.tuning import (  # noqa: E402
     shape_flops_bytes as ref_shape_flops_bytes)
 from repro.mining import AlgorithmCostModel as RefCostModel  # noqa: E402
@@ -35,7 +37,8 @@ from repro_torch.core.itemsets import apriori_bruteforce  # noqa: E402
 from repro_torch.core.mapreduce import FailureEvent  # noqa: E402
 from repro_torch.data.baskets import (BasketConfig,  # noqa: E402
                                       generate_baskets, sparse_baskets)
-from repro_torch.data.sparse import SparseSlab, density_stats  # noqa: E402
+from repro_torch.data.sparse import (SparseSlab, density_stats,  # noqa: E402
+                                     pack_tid_columns)
 from repro_torch.kernels.support_count.intersect import (  # noqa: E402
     intersect_count_words)
 from repro_torch.launch.tuning import shape_flops_bytes  # noqa: E402
@@ -174,6 +177,46 @@ def test_input_forms_agree(form):
         device="cpu", min_support=0.05, n_tiles=8)).run(T)
     assert port.supports == bitmap.supports
     assert _rules(port) == _rules(bitmap)
+
+
+# (n_tx, n_items): one word, n_tx not a multiple of 8 or 32, a multiple of
+# 32, several words, more items than one row pad
+PACK_SHAPES = [(1, 1), (7, 3), (31, 5), (32, 4), (33, 2), (100, 7),
+               (257, 130), (1000, 200)]
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pack_tid_columns_is_byte_equal_to_the_csr_route(shape):
+    """The direct packing gives the bytes of the CSR scatter (the route it
+    replaced) and of the reference, with all-zero columns and bit 31 of
+    every word set in the first column."""
+    n_tx, n_items = shape
+    T = (np.random.default_rng(n_tx + n_items).random(shape) < 0.4
+         ).astype(np.uint8)
+    T[:, -1] = 0                                  # an all-zero column
+    T[31::32, 0] = 1                              # bit 31 of each word
+    want = SparseSlab.from_dense(T).tid_columns()
+    for bitmap in (T, T.astype(bool), T.astype(np.float32)):
+        got = pack_tid_columns(bitmap)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert got.tobytes() == want.tobytes()
+    assert pack_tid_columns(T).tobytes() == ref_pack_tid_columns(T).tobytes()
+    if n_tx >= 32:
+        assert want[0, 0] >> 31 == 1
+    for pads in ((8, 4), (1, 1)):
+        assert (pack_tid_columns(T, *pads).tobytes()
+                == SparseSlab.from_dense(T).tid_columns(*pads).tobytes())
+
+
+@pytest.mark.parametrize("bad", [np.full((4, 3), 2, np.uint8),
+                                 np.full((4, 3), 0.5), np.full((4, 3), -1)],
+                         ids=["two", "half", "minus_one"])
+def test_pack_tid_columns_refuses_non_binary(bad):
+    with pytest.raises(ValueError):
+        pack_tid_columns(bad)
+    with pytest.raises(ValueError):
+        SparseSlab.from_dense(bad)
 
 
 def test_sparse_input_never_densifies(monkeypatch):

@@ -41,6 +41,20 @@ for algorithm in ("eclat", "auto"):
     assert mined.supports == res.supports and mined.rules == res.rules
     assert (choice is None) == (algorithm == "eclat")
     print("ALGORITHM", algorithm, mined.report.algorithm)
+import numpy as np
+import torch
+from repro_torch.configs.base import get_config
+from repro_torch.launch.serve import serve_demo
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models import transformer as T
+cfg = get_config("gemma3-1b", smoke=True)
+params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512, (2, 24)))
+logits = make_prefill_step(cfg)(params, {"tokens": toks})
+assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
+out = serve_demo("gemma3-1b", batch=2, prompt_len=8, new_tokens=4,
+                 device="cpu")
+print("SERVED", out["tokens"].shape)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
@@ -58,6 +72,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     algos = [ln.split()[1:] for ln in out.stdout.splitlines()
              if ln.startswith("ALGORITHM")]
     assert algos[0] == ["eclat", "eclat"] and algos[1][0] == "auto"
+    assert "SERVED (2, 4)" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -67,6 +82,8 @@ def test_no_source_imports_jax_or_reference():
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
+    for part in ("models", "configs", "launch", "kernels/flash_attention"):
+        assert PORT / part / "__init__.py" in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}
