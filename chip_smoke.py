@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build all six kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. build all seven kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
    path gives it (one transaction tile × the k=2 candidate batch) and at a
@@ -36,10 +36,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the host functions with the most own time in one more (profiled) dense
    Eclat mine; then, on the dense corpus and on the reference's B11
    corpus (8,192 x 96, seed 3, min_support 0.02, 16 tiles), time the
-   density scan and mine through apriori, Eclat and ``auto`` three times
-   each, in turns, and print the columnize times, every wall and the
-   ratio of auto's median wall to the best explicit one (B11's gate is
-   1.1; printed, not enforced);
+   density scan (beside an int64-accumulating sum of the same bitmap)
+   and mine through apriori, Eclat and ``auto`` three times
+   each, in turns, and print the columnize times, every wall, the
+   collector's pauses in each mine and the ratio of auto's median wall
+   to the best explicit one (B11's gate is 1.1; printed, not enforced);
 5. compile the mined rules into a ``RuleIndex`` and hold each rule-match
    kernel exactly against its plain version at the shapes serving gives
    it (that index against batches of 8 and 64 corpus baskets), at ragged
@@ -67,7 +68,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    attention over the KV cache, no kernel) within a relative 1e-3, with
    equal argmax tokens; run ``serve_demo(smoke=False)`` twice and require
    identical in-range greedy tokens and no kernel launch;
-8. print the card's name and power limit, the ``kernels`` JSON line and,
+8. the hymba-1.5b serving path: hold the selective-scan kernel against
+   its plain version (atol 1e-4; 1e-3 under extreme decay) at the
+   prefill's shape [4, 2048, 3200, 16], the smoke shape, N 4, a ragged
+   T, one step and extreme decay; time it at the prefill's shape beside
+   the plain version and its bound, and the flash kernel at hymba's
+   prefill shape; draw hymba-1.5b at full width (32 layers, d 1,600,
+   1,662,161,600 parameters) in bf16 on the card and run
+   ``make_prefill_step`` at [4 x 2048] tokens, requiring exactly 32
+   selective-scan and 32 flash launches; time one layer's attention
+   branch, SSM branch (and in it the float32 ``a``, ``b`` it forms) and
+   MLP; cast the weights to float32 and require the prefill's logits at
+   [2 x 256] to match ``prefill_into_cache`` within a relative 1e-3, with
+   equal argmax tokens; run ``serve_demo("hymba-1.5b", smoke=False)``
+   twice and require identical in-range greedy tokens and no kernel
+   launch;
+9. print the card's name and power limit, the ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -104,6 +120,14 @@ B11_CORPUS = dict(n_tx=8192, n_items=96, seed=3)
 B11_MIN_SUPPORT = 0.02
 B11_N_TILES = 16
 N_TILES = 32
+# hymba-1.5b's prefill [batch x tokens], and its parameter tree's size
+# (the reference's, by jax.eval_shape of its init_params; the config's
+# param_count() formula leaves out x_proj, dt_proj, dt_bias and the fuse
+# norms)
+HYMBA_PREFILL = (4, 2048)
+HYMBA_TREE_PARAMS = 1_662_161_600
+# float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
+FP32_FLOPS_PER_S = 67e12
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
 N_ORACLE = 512             # of them checked against the brute-force oracle
@@ -120,21 +144,26 @@ def _nvidia_smi(query: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, reps: int = REPS) -> float:
+def _cuda_ms(torch, fn, reps: int = REPS, queued: bool = True) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, after warm-up
-    (inputs stay in the 50 MB L2 between launches).
+    (inputs stay in the 50 MB L2 between launches where they fit).
 
     The card first spins for ``QUEUE_SLEEP_CYCLES``; the launches are
     queued meanwhile, so they run back to back and the events time the
     device, not the host's rate of enqueueing small kernels.  Raises if
-    the host took longer to enqueue them than the card spun."""
+    the host took longer to enqueue them than the card spun.  With
+    ``queued=False`` the card does not spin first: for a function that
+    enqueues thousands of small kernels (a Python loop over time steps),
+    whose time is set by the host, the events then time the host's loop
+    as the card sees it."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     spin, start, end = (torch.cuda.Event(enable_timing=True)
                         for _ in range(3))
     spin.record()
-    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    if queued:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -142,7 +171,7 @@ def _cuda_ms(torch, fn, reps: int = REPS) -> float:
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     end.synchronize()
-    if enqueue_ms >= spin.elapsed_time(start):
+    if queued and enqueue_ms >= spin.elapsed_time(start):
         raise AssertionError(f"enqueueing {reps} calls took {enqueue_ms:.2f}"
                              " ms, longer than the card spun: the timing "
                              "would include host gaps")
@@ -379,6 +408,240 @@ def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     return row
 
 
+def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
+    """Phase 8: the selective-scan kernel against its plain version and
+    timed, then hymba-1.5b at full width through make_prefill_step, the
+    decode path and serve_demo.  Returns the scan kernel's row of the
+    ``kernels`` line and the flash kernel's timing at hymba's shape."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.selective_scan import kernel as scan
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.serve import prefill_into_cache, serve_demo
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, layers, ssm
+    from repro_torch.models import transformer as T
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cfg = get_config("hymba-1.5b")
+    di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    B, S = HYMBA_PREFILL
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def scan_inputs(b, t, d, n):
+        """a ∈ (0, 1], b, C, h0 as tests/test_kernels.py draws them."""
+        return (torch.exp(-torch.exp(randn(b, t, d, n, scale=0.5) - 1)),
+                randn(b, t, d, n, scale=0.3), randn(b, t, n),
+                randn(b, d, n, scale=0.2))
+
+    # -- the kernel against its plain version ---------------------------
+    max_err = 0.0
+    cases = [("hymba-1.5b prefill", (B, S, di, N), 1e-4),   # test_kernels:150
+             ("smoke", (2, 40, 128, 4), 1e-4),
+             ("N 4", (2, 300, 640, 4), 1e-4),
+             ("ragged T", (3, 77, 100, 16), 1e-4),
+             ("one step", (2, 1, 3200, 16), 1e-4),
+             ("extreme decay", (1, 32, 16, 4), 1e-3)]       # :185
+    for name, shape, tol in cases:
+        a, b, C, h0 = scan_inputs(*shape)
+        if name == "extreme decay":
+            a = torch.where(torch.rand(shape, generator=gen, device=dev)
+                            < 0.5, 1e-4, 0.99999)
+            b = randn(*shape)
+        y, h = scan.selective_scan_fwd(a, b, C, h0)
+        y_p, h_p = scan.selective_scan_plain(a, b, C, h0)
+        torch.cuda.synchronize()
+        e = max(float((y - y_p).abs().max()), float((h - h_p).abs().max()))
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+        print(f"selective_scan {name} {list(shape)}: max abs err {e:.3g} "
+              f"(tolerance {tol})")
+        if e > tol or not finite:
+            raise AssertionError(f"selective_scan {name}: the kernel "
+                                 "differs from the plain version")
+        max_err = max(max_err, e)
+        del a, b, C, h0, y, h, y_p, h_p
+
+    # -- timed at the prefill's shape, beside the plain version ---------
+    a, b, C, h0 = scan_inputs(B, S, di, N)
+    elems = B * S * di * N
+    nbytes = 4 * (2 * elems + B * S * N + 2 * B * di * N + B * S * di)
+    bnd = {"bytes": nbytes / HBM_BW * 1e3,
+           "operations": 4 * elems / FP32_FLOPS_PER_S * 1e3}
+    by = max(bnd, key=bnd.get)
+    row = dict(
+        ms=_cuda_ms(torch, lambda: scan.selective_scan_fwd(a, b, C, h0)),
+        plain_ms=_cuda_ms(torch, lambda: scan.selective_scan_plain(
+            a, b, C, h0), reps=2, queued=False),
+        library_ms=None, bound_ms=bnd[by], bound_by=by,
+        shape=[B, S, di, N])
+    print(f"selective_scan [{B}, {S}, {di}, {N}] float32: kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (a Python "
+          f"loop over {S} steps), library none, bound {row['bound_ms']:.4f}"
+          f" ms ({by}; {nbytes} bytes, {4 * elems:.3g} flops)")
+    del a, b, C, h0
+
+    # -- the flash kernel at hymba's prefill shape (bf16) ----------------
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (randn(B, S, n, hd).to(bf16) for n in (H, KV, KV))
+    flash_t = {}
+    for w in (cfg.local_window, 0):
+        live = (S * (S + 1) // 2 if w <= 0 or w >= S
+                else w * (w + 1) // 2 + (S - w) * w)
+        fb = {"operations": 4 * B * H * hd * live / PEAK_FLOPS * 1e3,
+              "bytes": (2 * q.numel() + k.numel() + v.numel()) * 2
+              / HBM_BW * 1e3}
+        fby = max(fb, key=fb.get)
+        flash_t[w] = dict(
+            ms=_cuda_ms(torch, lambda w=w: flash.flash_attention_fwd(
+                q, k, v, window=w)),
+            bound_ms=fb[fby], bound_by=fby, window=w, shape=[B, S, H, KV, hd])
+        print(f"flash_attention hymba-1.5b [{B}, {S}, {H}/{KV}, {hd}] window "
+              f"{w} bf16: kernel {flash_t[w]['ms']:.4f} ms, bound "
+              f"{fb[fby]:.4f} ms ({fby})")
+    del q, k, v
+
+    # -- full-width prefill through make_prefill_step -------------------
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n_params = T.param_count(params)
+    print(f"hymba-1.5b: {n_params} parameters in {cfg.param_dtype} drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s (config formula "
+          f"{cfg.param_count()})")
+    if n_params != HYMBA_TREE_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not the reference "
+                             f"tree's {HYMBA_TREE_PARAMS}")
+    windows = attention.layer_windows(cfg)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": tokens})                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    on = main_path = read_counts()
+    want = {"flash": cfg.n_layers, "scan": cfg.n_layers}
+    if {key: n for key, n in on.items() if n} != want:
+        raise AssertionError(f"a full-width prefill launched {on}; want "
+                             f"{want} only")
+    if (logits.shape != (B, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite [4, V]")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    scan_ms = on["scan"] * row["ms"]
+    flash_ms = sum(flash_t[w]["ms"] for w in windows)
+    print(f"prefill hymba-1.5b [{B} x {S}] {cfg.activ_dtype}: wall "
+          f"{wall * 1e3:.2f} ms, {B * S / wall:.0f} tokens/s, "
+          f"{on['scan']} selective_scan and {on['flash']} flash "
+          f"launches; the kernels {scan_ms:.2f} + "
+          f"{flash_ms:.2f} ms = {(scan_ms + flash_ms) / (wall * 1e3):.1%} of "
+          f"the wall; peak memory {peak:.2f} GiB")
+
+    # -- where one layer's time goes (device time, one layer's inputs) ---
+    p0 = T._layer(params["layers"], 0)
+    x = params["embed"][tokens]
+    h = layers.rmsnorm(p0["ln1"], x, cfg.rms_eps)
+    u_c = randn(B, S, di).to(bf16)
+    dt = torch.nn.functional.softplus(randn(B, S, di) - 2)
+    A = -torch.exp(p0["ssm"]["A_log"])
+    Bc = randn(B, S, N).to(bf16)
+
+    def materialise():
+        (dt[..., None] * A[None, None]).exp_()
+        (dt[..., None] * Bc[:, :, None, :]).mul_(u_c[..., None])
+
+    parts = {
+        "attention branch (projections, RoPE, flash)": lambda: (
+            attention.gqa_forward(p0["attn"], cfg, h, cfg.local_window)),
+        "SSM branch (ssm_forward)": lambda: ssm.ssm_forward(p0["ssm"], cfg,
+                                                            h),
+        "  of which a = exp(dt·A), b = dt·B·u in float32": materialise,
+        "  of which the selective_scan launch": None,
+        "SwiGLU MLP": lambda: layers.mlp(p0["ffn"], h),
+    }
+    for label, fn in parts.items():
+        t = row["ms"] if fn is None else _cuda_ms(torch, fn, reps=3)
+        print(f"hymba-1.5b layer, {label}: {t:.3f} ms")
+    del x, h, u_c, dt, Bc, logits
+    torch.cuda.empty_cache()
+
+    # -- the prefill against the decode path, in float32 ----------------
+    REL_TOL = 1e-3     # max |prefill - decode| / max |decode|, float32
+    cfg32 = cfg.replace(param_dtype="float32", activ_dtype="float32")
+
+    def to_f32(tree):
+        return ({key: to_f32(val) for key, val in tree.items()}
+                if isinstance(tree, dict) else tree.float())
+    params32 = to_f32(params)
+    del params
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, 256))).to(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    by_prefill = make_prefill_step(cfg32)(params32, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    on_prefill = read_counts()
+    zero_counts()
+    t0 = time.perf_counter()
+    by_decode, _ = prefill_into_cache(params32, cfg32, tokens, 256)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    on_decode = read_counts()
+    rel = float((by_prefill - by_decode).abs().max()
+                / by_decode.abs().max())
+    same = bool((by_prefill.argmax(-1) == by_decode.argmax(-1)).all())
+    print(f"hymba-1.5b float32 [2 x 256]: make_prefill_step {t_prefill:.3f} "
+          f"s ({on_prefill['scan']} selective_scan, {on_prefill['flash']} "
+          f"flash launches) against prefill_into_cache {t_decode:.3f} s "
+          f"({sum(on_decode.values())} launches): relative max error "
+          f"{rel:.3g} (tolerance {REL_TOL}), argmax tokens "
+          f"{'equal' if same else 'DIFFER'}")
+    if (rel > REL_TOL or not same or on_prefill["scan"] != cfg.n_layers
+            or on_prefill["flash"] != cfg.n_layers
+            or any(on_decode.values())):
+        raise AssertionError("the prefill and the decode path disagree")
+    del params32, by_prefill, by_decode
+    torch.cuda.empty_cache()
+
+    # -- serve_demo at full width, twice ---------------------------------
+    served = []
+    for _ in range(2):
+        zero_counts()
+        out = serve_demo("hymba-1.5b", smoke=False, batch=4, prompt_len=32,
+                         new_tokens=32, device="cuda")
+        on = read_counts()
+        toks = out["tokens"]
+        print(f"serve_demo hymba-1.5b full width: prefill "
+              f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s, "
+              f"{out['tok_per_s']:.1f} tok/s; launches {on}")
+        if any(on.values()):
+            raise AssertionError("serve_demo decodes with plain attention "
+                                 f"and SSM steps only, but launched {on}")
+        if toks.shape != (4, 32) or not ((toks >= 0)
+                                         & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"serve_demo tokens {toks.shape} out of "
+                                 "range")
+        served.append(toks)
+    if not np.array_equal(*served):
+        raise AssertionError("two greedy serve_demo runs disagree")
+    print("serve_demo hymba-1.5b: identical greedy tokens twice")
+
+    row.update(launches=main_path["scan"], max_abs_err=max_err)
+    flash_row = dict(flash_t[cfg.local_window], launches=main_path["flash"])
+    flash_row["global"] = flash_t[0]
+    return row, flash_row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -402,6 +665,7 @@ def main() -> int:
     from repro_torch.kernels.rule_match import fused as rm_fused
     from repro_torch.kernels.rule_match import kernel as rm_kernel
     from repro_torch.kernels.rule_match.ops import rule_topk
+    from repro_torch.kernels.selective_scan import kernel as scan
     from repro_torch.kernels.support_count import fused, intersect, kernel
     from repro_torch.launch.roofline import HBM_BW
     from repro_torch.mining import EclatMiner, make_miner
@@ -416,7 +680,8 @@ def main() -> int:
                 "rm_packed": rm_fused.rule_scores_packed,
                 "rm_int8": rm_kernel.rule_scores_int8,
                 "intersect": intersect.intersect_count_words,
-                "flash": flash.flash_attention_fwd}
+                "flash": flash.flash_attention_fwd,
+                "scan": scan.selective_scan_fwd}
 
     def zero_counts():
         for w in wrappers.values():
@@ -435,7 +700,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = loader.build(["support_count_packed", "support_count_int8",
                          "rule_match_packed", "rule_match_int8",
-                         "intersect_count", "flash_attention"])
+                         "intersect_count", "flash_attention",
+                         "selective_scan"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -666,11 +932,24 @@ def main() -> int:
           "numpy, rules regenerated")
 
     # ---- 4. the vertical (Eclat) plane, dense and sparse --------------
+    # the garbage collector's pauses, summed from here to the end of the
+    # serving phase: they land in some mines and serves and not others
+    gc_pause = {"s": 0.0, "t0": 0.0}
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_pause["t0"] = time.perf_counter()
+        else:
+            gc_pause["s"] += time.perf_counter() - gc_pause["t0"]
+
+    gc.callbacks.append(on_gc)
+
     def mine_eclat(baskets, min_support, label, n_tiles=N_TILES, **kw):
         """One path through make_miner: counts zeroed just before, read
         just after; the wall includes auto's density measurement."""
         cfg = PipelineConfig(min_support=min_support, n_tiles=n_tiles, **kw)
         zero_counts()
+        gc_pause["s"] = 0.0
         t0 = time.perf_counter()
         miner, choice = make_miner(baskets, config=cfg)
         res = miner.run(baskets)
@@ -678,6 +957,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         on = read_counts()
         walls[label] = wall
+        gc_s[label] = gc_pause["s"]
         led = res.report.ledger
         columnize = [p.host_time_s for p in led.phases
                      if p.name == "eclat-columnize"]
@@ -690,7 +970,8 @@ def main() -> int:
               f"{rounds}, {len(res.supports)} itemsets, {len(res.rules)} "
               f"rules, wall {wall:.3f} s, of which serial phases "
               f"{serial_s:.3f} s (columnize "
-              f"{columnize[0] if columnize else 0.0:.3f} s); launches {on}")
+              f"{columnize[0] if columnize else 0.0:.3f} s), gc pauses "
+              f"{gc_s[label]:.3f} s; launches {on}")
         maps = led.by_kind("map")
         if not maps or any(p.syncs != 1 for p in maps):
             raise AssertionError("pipelined rounds must read back once "
@@ -698,17 +979,21 @@ def main() -> int:
         host_s[label] = columnize[0] if columnize else 0.0
         return res, on, choice
 
-    host_s = {}
+    host_s, gc_s = {}, {}
 
     def router_ratio(baskets, min_support, label, n_tiles=N_TILES):
         """The density scan's time, then apriori, Eclat and auto through
         make_miner three times each, in turns, as the reference's B11
         measures them; prints each wall, Eclat's columnize times and the
         ratio of auto's median wall to the best explicit median (B11's
-        gate is 1.1), and returns that ratio."""
+        gate is 1.1) beside the collector's pauses in each mine, and
+        returns that ratio."""
         t0 = time.perf_counter()
         stats = density_stats(baskets)
         scan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        baskets.sum(axis=0, dtype=np.int64)
+        int64_s = time.perf_counter() - t0
         got, order = {}, ("apriori", "eclat", "auto")
         for algorithm in order + order[::-1] + order:
             name = f"{label} {algorithm}"
@@ -719,16 +1004,20 @@ def main() -> int:
                 raise AssertionError(f"{name} mines another answer")
             got["answer"] = (res.supports, res.rules)
             got.setdefault(algorithm, []).append(
-                (walls[name], host_s[name]))
-        median = {a: float(np.median([w for w, _ in got[a]]))
+                (walls[name], host_s[name], gc_s[name]))
+        median = {a: float(np.median([w for w, _, _ in got[a]]))
                   for a in order}
         ratio = median["auto"] / min(median["apriori"], median["eclat"])
         print(f"router {label} ({stats.summary()}): density scan "
-              f"{scan_s:.4f} s; eclat columnize " + " / ".join(
-                  f"{c:.4f}" for _, c in got["eclat"]) + " s; walls "
-              + "; ".join(f"{a} " + " / ".join(f"{w:.4f}" for w, _ in
+              f"{scan_s:.4f} s (an int64-accumulating sum of the bitmap: "
+              f"{int64_s:.4f} s); eclat columnize " + " / ".join(
+                  f"{c:.4f}" for _, c, _ in got["eclat"]) + " s; walls "
+              + "; ".join(f"{a} " + " / ".join(f"{w:.4f}" for w, _, _ in
                                                got[a]) + " s"
                           for a in order)
+              + "; gc pauses in them " + "; ".join(
+                  f"{a} " + " / ".join(f"{g:.4f}" for _, _, g in got[a])
+                  + " s" for a in order)
               + f"; auto / best explicit = {ratio:.3f} (medians; B11 "
               "gate 1.1)")
         return ratio
@@ -932,13 +1221,6 @@ def main() -> int:
     # ---- 6. the serving main path, three ways -------------------------
     queries = [Query.of(np.flatnonzero(row).tolist())
                for row in T_all[:N_QUERIES]]
-    gc_pause = {"s": 0.0, "t0": 0.0}
-
-    def on_gc(phase, _info):
-        if phase == "start":
-            gc_pause["t0"] = time.perf_counter()
-        else:
-            gc_pause["s"] += time.perf_counter() - gc_pause["t0"]
 
     def serve(**kw):
         """One serving path: a warm-up serve on its own engine, then the
@@ -962,7 +1244,6 @@ def main() -> int:
     paths = {"packed": {}, "mxu": {"tuning": {"variant": "mxu"}},
              "ref": {"data_plane": "ref"}}
     runs = {name: [] for name in paths}
-    gc.callbacks.append(on_gc)
     for name in ("packed", "mxu", "ref", "ref", "mxu", "packed"):
         runs[name].append(serve(**paths[name]))
     gc.callbacks.remove(on_gc)
@@ -1010,7 +1291,13 @@ def main() -> int:
     err["flash"] = lm.pop("max_abs_err")
     timing["flash"] = lm
 
-    # ---- 8. result lines ----------------------------------------------
+    # ---- 8. the hymba-1.5b serving path (full width) -------------------
+    timing["scan"], timing["flash"]["hymba"] = hymba_phase(
+        torch, np, dev, zero_counts, read_counts)
+    launches["scan"] = timing["scan"].pop("launches")
+    err["scan"] = timing["scan"].pop("max_abs_err")
+
+    # ---- 9. result lines ----------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -1031,7 +1318,10 @@ def main() -> int:
              "src/repro/kernels/support_count/intersect.py:63"),
             ("flash", "flash_attention",
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:96")):
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            ("scan", "selective_scan",
+             "src/repro_torch/csrc/selective_scan.cu",
+             "src/repro/kernels/selective_scan/kernel.py:77")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))

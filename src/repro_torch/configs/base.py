@@ -97,7 +97,9 @@ class ModelConfig:
     n_vision_tokens: int = 0            # vlm: patch-embedding count
 
     # ---- performance levers (the reference's; on the card attention
-    # always runs the flash kernel, whatever attention_impl says) ----
+    # always runs the flash kernel, whatever attention_impl says, and a
+    # full-sequence SSM the selective-scan kernel, whatever ssm_impl
+    # says) ----
     remat_policy: str = "full"          # none | full | dots
     attention_impl: str = "naive"       # naive | chunked  (chunked = online-softmax, O(S) memory)
     attention_chunk: int = 1024
@@ -240,4 +242,4 @@ def _ensure_loaded():
     _LOADED = True
     # the other architectures register with their model branches
     # (ROADMAP, LM slices)
-    from repro_torch.configs import gemma3_1b  # noqa: F401
+    from repro_torch.configs import gemma3_1b, hymba_1_5b  # noqa: F401

@@ -21,6 +21,9 @@ bit b of word w holds transaction ``w * 32 + b`` (LSB-first).
 """
 from __future__ import annotations
 
+import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Sequence, Union
 
@@ -28,6 +31,12 @@ import numpy as np
 import torch
 
 WORD_BITS = 32
+# rows a dense bool or uint8 bitmap is summed over in uint16 before the
+# partials widen to int64: 257 x 255 = 65,535 is the most a uint16 holds
+U16_ROWS = 257
+# a bitmap of at least this many bytes is counted on several threads
+THREADED_COUNT_BYTES = 1 << 22
+MAX_COUNT_THREADS = 8
 
 
 def _pad_up(n: int, multiple: int) -> int:
@@ -170,7 +179,7 @@ def density_stats(baskets: BasketsLike) -> DensityStats:
     if isinstance(baskets, SparseSlab):
         slab = baskets
     elif isinstance(baskets, np.ndarray):
-        counts = baskets.sum(axis=0, dtype=np.int64)
+        counts = dense_item_counts(baskets)
         n_tx, n_items = baskets.shape
         nnz = int(counts.sum())
         return DensityStats(
@@ -187,6 +196,62 @@ def density_stats(baskets: BasketsLike) -> DensityStats:
         density=slab.density, item_counts=counts,
         max_item_frequency=(float(counts.max()) / slab.n_tx
                             if slab.n_tx and slab.n_items else 0.0))
+
+
+def _column_sums(T: np.ndarray) -> np.ndarray:
+    """int64 column sums of a C-contiguous bool or uint8 block of rows,
+    summed in uint16 over ``U16_ROWS`` rows at a time."""
+    n_tx, n_items = T.shape
+    blocks = n_tx // U16_ROWS
+    whole = blocks * U16_ROWS
+    counts = T[:whole].reshape(blocks, U16_ROWS, n_items).sum(
+        axis=1, dtype=np.uint16).sum(axis=0, dtype=np.int64)
+    return counts + T[whole:].sum(axis=0, dtype=np.int64)
+
+
+def _thread_count() -> int:
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:              # no affinity call on this platform
+        cores = os.cpu_count() or 1
+    return max(1, min(MAX_COUNT_THREADS, cores))
+
+
+@functools.cache
+def _count_pool(pid: int) -> ThreadPoolExecutor:
+    """One pool per process (keyed by its pid, since a forked child does
+    not inherit the threads): starting threads anew for every count costs
+    as much as the count of a 100 MB bitmap."""
+    return ThreadPoolExecutor(_thread_count(),
+                              thread_name_prefix="item-counts")
+
+
+def dense_item_counts(T: np.ndarray) -> np.ndarray:
+    """Per-item transaction counts [n_items] int64 of a dense bitmap
+    [n_tx, n_items]: ``np.asarray(T, np.int64).sum(axis=0)`` for every
+    input, as the reference measures them.
+
+    A C-contiguous bool or uint8 bitmap is summed in uint16 over blocks
+    of ``U16_ROWS`` rows, and only the blocks' partials widen to int64:
+    one pass that reads each byte once, exact for any byte values.  A
+    bitmap of at least ``THREADED_COUNT_BYTES`` is cut into row ranges,
+    one per core up to ``MAX_COUNT_THREADS``, counted on a shared pool
+    (numpy's reductions release the GIL).  Any other input takes the
+    int64 sum.
+    """
+    T = np.asarray(T)
+    if T.ndim != 2:
+        raise ValueError(f"bitmap must be 2-D, got {T.shape}")
+    if not ((T.dtype == np.bool_ or T.dtype == np.uint8)
+            and T.flags.c_contiguous):
+        return T.sum(axis=0, dtype=np.int64)
+    threads = _thread_count() if T.nbytes >= THREADED_COUNT_BYTES else 1
+    step = -(-T.shape[0] // threads)
+    step = max(U16_ROWS, -(-step // U16_ROWS) * U16_ROWS)
+    parts = [T[r:r + step] for r in range(0, T.shape[0], step)]
+    if len(parts) <= 1:
+        return _column_sums(T)
+    return sum(_count_pool(os.getpid()).map(_column_sums, parts))
 
 
 def pack_tid_columns(T: np.ndarray, row_pad: int = 128,

@@ -1,4 +1,5 @@
-"""Decoder assembly: init / prefill / decode for the ``attn`` block.
+"""Decoder assembly: init / prefill / decode for the ``attn`` and
+``hybrid`` blocks.
 
 Parameters keep the reference's tree: layers are stacked (leading axis =
 layer) under ``params["layers"]``, with the reference's keys, shapes and
@@ -6,9 +7,14 @@ dtypes, so a reference checkpoint converts leaf for leaf
 (:mod:`repro_torch.models.convert`).  The reference's ``lax.scan`` over
 layers becomes a Python loop with one Python-int window per layer.
 
-Block ported so far: ``attn`` = [pre-norm GQA] + [pre-norm SwiGLU].  The
-other branches raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+Blocks ported so far:
+
+* ``attn``   — [pre-norm GQA] + [pre-norm SwiGLU];
+* ``hybrid`` — parallel attention + Mamba heads, fused by per-branch norms
+  (Hymba), then SwiGLU.
+
+The other branches raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.
 """
 from __future__ import annotations
 
@@ -18,21 +24,18 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, dtype_of, embed_init, mlp,
                                        mlp_init, rmsnorm, rmsnorm_init)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model branches the port does not run yet."""
-    if cfg.block_type == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the hybrid (attention + Mamba) block is the "
-            "hymba-1.5b slice (ROADMAP item 6)")
     if cfg.block_type == "rwkv":
         raise NotImplementedError(
             f"{cfg.arch_id}: the RWKV-6 block is the rwkv6-7b slice "
             "(ROADMAP item 6)")
-    if cfg.block_type != "attn":
+    if cfg.block_type not in ("attn", "hybrid"):
         raise NotImplementedError(f"unknown block type {cfg.block_type!r}")
     if cfg.moe is not None and cfg.moe.n_experts:
         raise NotImplementedError(f"{cfg.arch_id}: MoE layers (ROADMAP "
@@ -53,10 +56,15 @@ def check_supported(cfg: ModelConfig) -> None:
 def _layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, generator.device
-    return {"ln1": rmsnorm_init(d, torch.float32, dev),
-            "ln2": rmsnorm_init(d, torch.float32, dev),
-            "attn": attn.gqa_init(generator, cfg, dtype),
-            "ffn": mlp_init(generator, d, cfg.d_ff, dtype)}
+    p: Params = {"ln1": rmsnorm_init(d, torch.float32, dev),
+                 "ln2": rmsnorm_init(d, torch.float32, dev),
+                 "attn": attn.gqa_init(generator, cfg, dtype)}
+    if cfg.block_type == "hybrid":
+        p["ssm"] = ssm_mod.ssm_init(generator, cfg, dtype)
+        p["fuse_ln_a"] = rmsnorm_init(d, torch.float32, dev)
+        p["fuse_ln_s"] = rmsnorm_init(d, torch.float32, dev)
+    p["ffn"] = mlp_init(generator, d, cfg.d_ff, dtype)
+    return p
 
 
 def _stack(trees):
@@ -118,9 +126,21 @@ def _block_full(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 window: int) -> Tuple[torch.Tensor, float]:
     """One layer, full sequence.  Returns (x, aux_loss)."""
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    x = x + attn.gqa_forward(p["attn"], cfg, h, window)
+    a = attn.gqa_forward(p["attn"], cfg, h, window)
+    if cfg.block_type == "hybrid":
+        s, _ = ssm_mod.ssm_forward(p["ssm"], cfg, h)
+        x = x + _fuse(cfg, p, a, s)
+    else:
+        x = x + a
     h2 = rmsnorm(p["ln2"], x, cfg.rms_eps)
     return x + mlp(p["ffn"], h2), 0.0
+
+
+def _fuse(cfg: ModelConfig, p: Params, a: torch.Tensor,
+          s: torch.Tensor) -> torch.Tensor:
+    """Hymba's fusion of the attention and SSM branches."""
+    return 0.5 * (rmsnorm(p["fuse_ln_a"], a, cfg.rms_eps)
+                  + rmsnorm(p["fuse_ln_s"], s, cfg.rms_eps))
 
 
 def forward_hidden(params: Params, cfg: ModelConfig,
@@ -159,18 +179,26 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# KV-cache decode
+# KV-cache / recurrent-state decode
 # ---------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cpu") -> Params:
-    """Stacked [L, ...] cache tree."""
+    """Stacked [L, ...] cache tree: K and V, and for the hybrid block the
+    SSM state ``h`` [L, B, di, N] (float32) and ``conv`` [L, B, d_conv-1,
+    di]."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    L = cfg.n_layers
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype_of(cfg.activ_dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.block_type == "hybrid":
+        st = ssm_mod.ssm_init_state(cfg, batch, dtype, device)
+        for key, val in st.items():
+            cache[key] = val.expand((L,) + val.shape).contiguous()
+    return cache
 
 
 def _block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
@@ -178,7 +206,13 @@ def _block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
     """One layer, one token.  cache: this layer's slice (updated in
     place)."""
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    y, cache = attn.gqa_decode(p["attn"], cfg, h, cache, pos, window)
+    y, _ = attn.gqa_decode(p["attn"], cfg, h, cache, pos, window)
+    if cfg.block_type == "hybrid":
+        s, st = ssm_mod.ssm_forward(p["ssm"], cfg, h,
+                                    {"h": cache["h"], "conv": cache["conv"]})
+        cache["h"].copy_(st["h"])
+        cache["conv"].copy_(st["conv"])
+        y = _fuse(cfg, p, y, s)
     x = x + y
     h2 = rmsnorm(p["ln2"], x, cfg.rms_eps)
     return x + mlp(p["ffn"], h2), cache

@@ -278,9 +278,9 @@ def test_full_config_matches_reference_without_building_it():
         assert cfg.kv_cache_bytes(batch, seq) == \
             ref_cfg.kv_cache_bytes(batch, seq)
     assert cfg.shapes() == ref_cfg.shapes()
-    assert list(list_archs()) == [ARCH]
+    assert list(list_archs()) == [ARCH, "hymba-1.5b"]
     with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        get_config("rwkv6-7b")
 
 
 def test_params_from_numpy_keeps_bf16_bits():
@@ -321,10 +321,10 @@ def test_serve_demo_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("change", [
-    dict(block_type="hybrid"), dict(block_type="rwkv"),
+    dict(frontend="vision", n_vision_tokens=4), dict(block_type="rwkv"),
     dict(moe=MoEConfig(n_experts=4, top_k=2)), dict(mla=MLAConfig()),
     dict(frontend="audio", n_codebooks=4)],
-    ids=["hybrid", "rwkv", "moe", "mla", "audio"])
+    ids=["vision", "rwkv", "moe", "mla", "audio"])
 def test_unported_branches_raise(change):
     cfg = get_config(ARCH, smoke=True).replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
