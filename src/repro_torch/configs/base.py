@@ -242,4 +242,5 @@ def _ensure_loaded():
     _LOADED = True
     # the other architectures register with their model branches
     # (ROADMAP, LM slices)
-    from repro_torch.configs import gemma3_1b, hymba_1_5b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_1b, hymba_1_5b, rwkv6_7b)

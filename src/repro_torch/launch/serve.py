@@ -2,8 +2,9 @@
 static-slot batch, as the reference's ``launch/serve.py``.
 
 The prompt is prefilled token by token through ``decode_step`` (plain
-attention over the KV cache, uniform across cache kinds), so this loop
-launches no attention kernel; the fused full-sequence prefill is
+attention over the KV cache, or one plain step of the recurrent state,
+uniform across cache kinds), so this loop launches none of the LM
+kernels; the fused full-sequence prefill is
 ``launch.steps.make_prefill_step``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \

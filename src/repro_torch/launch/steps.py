@@ -14,8 +14,9 @@ from repro_torch.models import transformer as T
 
 def make_prefill_step(cfg: ModelConfig):
     """(params, batch) -> last-position logits [B, V].  On the card every
-    layer's attention is one launch of the flash kernel, and every hybrid
-    layer's SSM scan one launch of the selective-scan kernel."""
+    layer's attention is one launch of the flash kernel, every hybrid
+    layer's SSM scan one launch of the selective-scan kernel, and every
+    rwkv layer's WKV recurrence one launch of the wkv6 kernel."""
 
     @torch.no_grad()
     def prefill_step(params, batch):

@@ -1,5 +1,5 @@
-"""Decoder assembly: init / prefill / decode for the ``attn`` and
-``hybrid`` blocks.
+"""Decoder assembly: init / prefill / decode for the ``attn``, ``hybrid``
+and ``rwkv`` blocks.
 
 Parameters keep the reference's tree: layers are stacked (leading axis =
 layer) under ``params["layers"]``, with the reference's keys, shapes and
@@ -11,7 +11,9 @@ Blocks ported so far:
 
 * ``attn``   — [pre-norm GQA] + [pre-norm SwiGLU];
 * ``hybrid`` — parallel attention + Mamba heads, fused by per-branch norms
-  (Hymba), then SwiGLU.
+  (Hymba), then SwiGLU;
+* ``rwkv``   — [pre-norm RWKV-6 time-mix] + [pre-norm channel-mix], with
+  no attention and no KV cache (RWKV-6).
 
 The other branches raise ``NotImplementedError`` naming the ROADMAP item
 that ports them.
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv6
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (Params, dtype_of, embed_init, mlp,
                                        mlp_init, rmsnorm, rmsnorm_init)
@@ -31,11 +34,7 @@ from repro_torch.models.layers import (Params, dtype_of, embed_init, mlp,
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model branches the port does not run yet."""
-    if cfg.block_type == "rwkv":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the RWKV-6 block is the rwkv6-7b slice "
-            "(ROADMAP item 6)")
-    if cfg.block_type not in ("attn", "hybrid"):
+    if cfg.block_type not in ("attn", "hybrid", "rwkv"):
         raise NotImplementedError(f"unknown block type {cfg.block_type!r}")
     if cfg.moe is not None and cfg.moe.n_experts:
         raise NotImplementedError(f"{cfg.arch_id}: MoE layers (ROADMAP "
@@ -57,8 +56,12 @@ def _layer_init(cfg: ModelConfig, generator: torch.Generator) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, generator.device
     p: Params = {"ln1": rmsnorm_init(d, torch.float32, dev),
-                 "ln2": rmsnorm_init(d, torch.float32, dev),
-                 "attn": attn.gqa_init(generator, cfg, dtype)}
+                 "ln2": rmsnorm_init(d, torch.float32, dev)}
+    if cfg.block_type == "rwkv":
+        p["time"] = rwkv6.rwkv_time_init(generator, cfg, dtype)
+        p["channel"] = rwkv6.rwkv_channel_init(generator, cfg, dtype)
+        return p
+    p["attn"] = attn.gqa_init(generator, cfg, dtype)
     if cfg.block_type == "hybrid":
         p["ssm"] = ssm_mod.ssm_init(generator, cfg, dtype)
         p["fuse_ln_a"] = rmsnorm_init(d, torch.float32, dev)
@@ -125,6 +128,13 @@ def _layer(tree, i: int):
 def _block_full(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 window: int) -> Tuple[torch.Tensor, float]:
     """One layer, full sequence.  Returns (x, aux_loss)."""
+    if cfg.block_type == "rwkv":
+        y, _ = rwkv6.rwkv_time_forward(p["time"], cfg,
+                                       rmsnorm(p["ln1"], x, cfg.rms_eps))
+        x = x + y
+        y, _ = rwkv6.rwkv_channel_forward(p["channel"], cfg,
+                                          rmsnorm(p["ln2"], x, cfg.rms_eps))
+        return x + y, 0.0
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
     a = attn.gqa_forward(p["attn"], cfg, h, window)
     if cfg.block_type == "hybrid":
@@ -187,9 +197,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device="cpu") -> Params:
     """Stacked [L, ...] cache tree: K and V, and for the hybrid block the
     SSM state ``h`` [L, B, di, N] (float32) and ``conv`` [L, B, d_conv-1,
-    di]."""
+    di]; for the rwkv block only its recurrent state, ``tm_x`` and
+    ``cm_x`` [L, B, d] and ``wkv`` [L, B, H, n, n] (float32)."""
     check_supported(cfg)
     L = cfg.n_layers
+    if cfg.block_type == "rwkv":
+        st = rwkv6.rwkv_init_state(cfg, batch, dtype_of(cfg.activ_dtype),
+                                   device)
+        return {key: val.expand((L,) + val.shape).contiguous()
+                for key, val in st.items()}
     shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype_of(cfg.activ_dtype)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -205,6 +221,18 @@ def _block_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, cache: Dict,
                   pos: int, window: int) -> Tuple[torch.Tensor, Dict]:
     """One layer, one token.  cache: this layer's slice (updated in
     place)."""
+    if cfg.block_type == "rwkv":
+        y, st = rwkv6.rwkv_time_forward(p["time"], cfg,
+                                        rmsnorm(p["ln1"], x, cfg.rms_eps),
+                                        cache)
+        cache["tm_x"].copy_(st["tm_x"])
+        cache["wkv"].copy_(st["wkv"])
+        x = x + y
+        y, st = rwkv6.rwkv_channel_forward(p["channel"], cfg,
+                                           rmsnorm(p["ln2"], x, cfg.rms_eps),
+                                           cache)
+        cache["cm_x"].copy_(st["cm_x"])
+        return x + y, cache
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
     y, _ = attn.gqa_decode(p["attn"], cfg, h, cache, pos, window)
     if cfg.block_type == "hybrid":

@@ -60,6 +60,11 @@ params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 logits = make_prefill_step(cfg)(params, {"tokens": toks})
 assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
 print("HYBRID", tuple(logits.shape))
+cfg = get_config("rwkv6-7b", smoke=True)
+params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+logits = make_prefill_step(cfg)(params, {"tokens": toks})
+assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
+print("RWKV", tuple(logits.shape))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
@@ -79,6 +84,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert algos[0] == ["eclat", "eclat"] and algos[1][0] == "auto"
     assert "SERVED (2, 4)" in out.stdout
     assert "HYBRID (2, 512)" in out.stdout
+    assert "RWKV (2, 512)" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -89,7 +95,7 @@ def test_no_source_imports_jax_or_reference():
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     for part in ("models", "configs", "launch", "kernels/flash_attention",
-                 "kernels/selective_scan"):
+                 "kernels/selective_scan", "kernels/rwkv6_wkv"):
         assert PORT / part / "__init__.py" in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  for f in files}

@@ -278,9 +278,9 @@ def test_full_config_matches_reference_without_building_it():
         assert cfg.kv_cache_bytes(batch, seq) == \
             ref_cfg.kv_cache_bytes(batch, seq)
     assert cfg.shapes() == ref_cfg.shapes()
-    assert list(list_archs()) == [ARCH, "hymba-1.5b"]
+    assert list(list_archs()) == [ARCH, "hymba-1.5b", "rwkv6-7b"]
     with pytest.raises(KeyError):
-        get_config("rwkv6-7b")
+        get_config("deepseek-v2-236b")
 
 
 def test_params_from_numpy_keeps_bf16_bits():
@@ -320,16 +320,18 @@ def test_serve_demo_defaults_to_the_card():
         serve.serve_demo(ARCH, batch=1, prompt_len=2, new_tokens=1)
 
 
-@pytest.mark.parametrize("change", [
-    dict(frontend="vision", n_vision_tokens=4), dict(block_type="rwkv"),
-    dict(moe=MoEConfig(n_experts=4, top_k=2)), dict(mla=MLAConfig()),
-    dict(frontend="audio", n_codebooks=4)],
+@pytest.mark.parametrize("change, match", [
+    (dict(frontend="vision", n_vision_tokens=4), "ROADMAP"),
+    (dict(block_type="rwkv7"), "unknown block type 'rwkv7'"),
+    (dict(moe=MoEConfig(n_experts=4, top_k=2)), "ROADMAP"),
+    (dict(mla=MLAConfig()), "ROADMAP"),
+    (dict(frontend="audio", n_codebooks=4), "ROADMAP")],
     ids=["vision", "rwkv", "moe", "mla", "audio"])
-def test_unported_branches_raise(change):
+def test_unported_branches_raise(change, match):
     cfg = get_config(ARCH, smoke=True).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         T.init_cache(cfg, 1, 4)
 
 
