@@ -38,11 +38,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    corpus (8,192 x 96, seed 3, min_support 0.02, 16 tiles), time the
    density scan (beside an int64-accumulating sum of the same bitmap)
    and measure the router two ways: as the reference's B11 does (each
-   miner built by ``make_miner`` once and warmed with one run, then three
-   interleaved timed runs a side) and, stricter, ``make_miner`` plus a
-   cold run three times a side, in turns; print every wall, the
-   columnize times, the collector's pauses in each mine and both ratios
-   of auto's median wall to the best explicit one (B11's gate is 1.1;
+   miner built by ``make_miner`` once and warmed with one run, then
+   interleaved timed runs a side: 11 on the dense corpus, 41 on B11's,
+   enough to resolve 10%) and, stricter, ``make_miner`` plus a cold run
+   three times a side, in turns; print every wall, the columnize times,
+   the collector's pauses in each mine and both ratios of auto's median
+   wall to the best explicit one, B11's with a seeded bootstrap's 90%
+   interval and its value over the first three reps (B11's gate is 1.1;
    printed, not enforced);
 5. compile the mined rules into a ``RuleIndex`` and hold each rule-match
    kernel exactly against its plain version at the shapes serving gives
@@ -60,13 +62,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 7. the LM serving path: hold the flash-attention kernel against its plain
    version (2e-5 in float32, 2e-2 in bf16) at gemma3-1b's head shape
    [4, 2048, 4/1, 256] with windows 512 and 0 in both types, hymba-1.5b's
-   [1, 2048, 25/5, 64] with window 1024, the smoke shapes (hd 16) and
-   ragged lengths (77, 1000); time it at gemma3-1b's two layer shapes in
-   bf16 beside the plain version and ``scaled_dot_product_attention`` (a
-   yardstick the port never calls) and its bound; draw gemma3-1b at full
-   width (26 layers, d 1,152, vocab 262,144) in bf16 on the card and run
+   [1, 2048, 25/5, 64] with window 1024 in both types and its prefill's
+   [4, 2048, 25/5, 64] at windows 1024 and 0 in bf16, the smoke shapes
+   (hd 16) and ragged lengths (77, 1000, and 1, 129, 1000 at hd 64 and
+   256); time it at gemma3-1b's two layer shapes in bf16 beside the
+   plain version and ``scaled_dot_product_attention`` (a yardstick the
+   port never calls) and its bound; draw gemma3-1b at full width (26
+   layers, d 1,152, vocab 262,144) in bf16 on the card and run
    ``make_prefill_step`` at [4 x 2048] tokens, requiring exactly 26 flash
-   launches; cast the weights to float32 and require the prefill's
+   launches, all on the Hopper (TMA and wgmma) route, and print its wall
+   beside the time the host took to return from the call; cast the
+   weights to float32 and require the prefill's
    last-position logits at [2 x 640] to match ``prefill_into_cache`` (plain
    attention over the KV cache, no kernel) within a relative 1e-3, with
    equal argmax tokens; run ``serve_demo(smoke=False)`` twice and require
@@ -76,10 +82,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    prefill's shape [4, 2048, 3200, 16], the smoke shape, N 4, a ragged
    T, one step and extreme decay; time it at the prefill's shape beside
    the plain version and its bound, and the flash kernel at hymba's
-   prefill shape; draw hymba-1.5b at full width (32 layers, d 1,600,
-   1,662,161,600 parameters) in bf16 on the card and run
-   ``make_prefill_step`` at [4 x 2048] tokens, requiring exactly 32
-   selective-scan and 32 flash launches; time one layer's attention
+   prefill shape beside its plain version and SDPA (a boolean mask at
+   window 1024, ``is_causal`` at window 0); draw hymba-1.5b at full width
+   (32 layers, d 1,600, 1,662,161,600 parameters) in bf16 on the card and
+   run ``make_prefill_step`` at [4 x 2048] tokens, requiring exactly 32
+   selective-scan and 32 flash launches, the flash ones all on the
+   Hopper route; time one layer's attention
    branch, SSM branch (and in it the float32 ``a``, ``b`` it forms) and
    MLP; cast the weights to float32 and require the prefill's logits at
    [2 x 256] to match ``prefill_into_cache`` within a relative 1e-3, with
@@ -139,6 +147,11 @@ B11_CORPUS = dict(n_tx=8192, n_items=96, seed=3)
 B11_MIN_SUPPORT = 0.02
 B11_N_TILES = 16
 B11_REPS = 3               # timed runs per arm (bench_algorithms.py REPS)
+# interleaved timed runs per arm for the router ratio, enough to resolve
+# 10% at each corpus's wall (dense 0.15-0.25 s, B11's 8-40 ms a mine)
+ROUTER_REPS_DENSE = 11
+ROUTER_REPS_B11 = 41
+BOOTSTRAP_RESAMPLES = 2000   # for the ratio's 90% interval
 N_TILES = 32
 # hymba-1.5b's prefill [batch x tokens], and its parameter tree's size
 # (the reference's, by jax.eval_shape of its init_params; the config's
@@ -263,12 +276,17 @@ def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
              for w in (512, 0) for dt in (bf16, f32)]
     cases += [("hymba-1.5b", 1, 2048, 25, 5, 64, 1024, dt)
               for dt in (bf16, f32)]
+    cases += [("hymba-1.5b prefill", 4, 2048, 25, 5, 64, w, bf16)
+              for w in (1024, 0)]
     cases += [("smoke", 2, 40, 4, 1, 16, w, dt) for w in (16, 0)
               for dt in (bf16, f32)]
     cases += [("ragged", 1, 77, 4, 2, 64, 0, f32),
               ("ragged", 2, 77, 8, 8, 128, 16, bf16),
               ("ragged", 1, 1000, 4, 4, 32, 100, f32),
               ("ragged", 2, 1000, 4, 1, 256, 512, bf16)]
+    # lengths that end inside, or just past, a 128-row query tile
+    cases += [("ragged", 1, S, 4, 1, hd, 0, bf16)
+              for S in (1, 129, 1000) for hd in (64, 256)]
     for name, B, S, H, KV, hd, w, dt in cases:
         q, k, v = qkv(B, S, H, KV, hd, dt)
         got = flash.flash_attention_fwd(q, k, v, window=w).float()
@@ -323,7 +341,9 @@ def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
               f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
               f"{t['library_ms']:.4f} ms (max abs err vs plain {e:.3g}), "
               f"bound {t['bound_ms']:.4f} ms ({by}; {flops:.3g} flops, "
-              f"{nbytes} bytes)")
+              f"{nbytes} bytes); the kernel at "
+              f"{t['ms'] / t['bound_ms']:.2f}x its bound and "
+              f"{t['ms'] / t['library_ms']:.2f}x SDPA's time")
         timing[w] = t
     del q, k, v, qt, kt, vt, mask, plain
 
@@ -350,19 +370,26 @@ def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     logits = step(params, {"tokens": tokens})
+    enqueue = time.perf_counter() - t0     # the host's share of the wall
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     on = read_counts()
+    routes = dict(flash.flash_attention_fwd.launches_by_route)
     if on["flash"] != cfg.n_layers or any(
             n for key, n in on.items() if key != "flash"):
         raise AssertionError(f"a full-width prefill launched {on}; want "
                              f"{cfg.n_layers} flash launches only")
+    if routes["hopper"] != cfg.n_layers:
+        raise AssertionError(f"the prefill's flash launches took the routes "
+                             f"{routes}; want all {cfg.n_layers} on hopper")
     if (logits.shape != (4, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite [4, V]")
     kernel_ms = sum(timing[w]["ms"] for w in windows)
-    print(f"prefill gemma3-1b [4 x 2048] bf16: wall {wall * 1e3:.2f} ms, "
-          f"{4 * 2048 / wall:.0f} tokens/s, {on['flash']} flash launches; "
+    print(f"prefill gemma3-1b [4 x 2048] bf16: wall {wall * 1e3:.2f} ms "
+          f"(the host returned from the call after {enqueue * 1e3:.2f} ms), "
+          f"{4 * 2048 / wall:.0f} tokens/s, {on['flash']} flash launches "
+          f"(by route {routes}); "
           f"the kernel {kernel_ms:.2f} ms = {kernel_ms / (wall * 1e3):.1%} "
           f"of the wall; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -512,22 +539,39 @@ def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     # -- the flash kernel at hymba's prefill shape (bf16) ----------------
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = (randn(B, S, n, hd).to(bf16) for n in (H, KV, KV))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    idx = torch.arange(S, device=dev)
     flash_t = {}
     for w in (cfg.local_window, 0):
-        live = (S * (S + 1) // 2 if w <= 0 or w >= S
-                else w * (w + 1) // 2 + (S - w) * w)
-        fb = {"operations": 4 * B * H * hd * live / PEAK_FLOPS * 1e3,
+        if w:
+            mask = (idx[None, :] <= idx[:, None]) & (
+                idx[None, :] > idx[:, None] - w)
+
+            def sdpa(mask=mask):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        fb = {"operations": 4 * B * H * hd * _live_pairs(S, w) / PEAK_FLOPS
+              * 1e3,
               "bytes": (2 * q.numel() + k.numel() + v.numel()) * 2
               / HBM_BW * 1e3}
         fby = max(fb, key=fb.get)
-        flash_t[w] = dict(
+        t = flash_t[w] = dict(
             ms=_cuda_ms(torch, lambda w=w: flash.flash_attention_fwd(
                 q, k, v, window=w)),
+            plain_ms=_cuda_ms(torch, lambda w=w: flash.flash_attention_plain(
+                q, k, v, window=w), reps=3),
+            library_ms=_cuda_ms(torch, sdpa),
             bound_ms=fb[fby], bound_by=fby, window=w, shape=[B, S, H, KV, hd])
         print(f"flash_attention hymba-1.5b [{B}, {S}, {H}/{KV}, {hd}] window "
-              f"{w} bf16: kernel {flash_t[w]['ms']:.4f} ms, bound "
-              f"{fb[fby]:.4f} ms ({fby})")
-    del q, k, v
+              f"{w} bf16: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, SDPA {t['library_ms']:.4f} ms, bound {fb[fby]:.4f} ms "
+              f"({fby}); the kernel at {t['ms'] / fb[fby]:.2f}x its bound "
+              f"and {t['ms'] / t['library_ms']:.2f}x SDPA's time")
+    del q, k, v, qt, kt, vt, mask
 
     # -- full-width prefill through make_prefill_step -------------------
     t0 = time.perf_counter()
@@ -551,13 +595,18 @@ def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     logits = step(params, {"tokens": tokens})
+    enqueue = time.perf_counter() - t0     # the host's share of the wall
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     on = main_path = read_counts()
+    routes = dict(flash.flash_attention_fwd.launches_by_route)
     want = {"flash": cfg.n_layers, "scan": cfg.n_layers}
     if {key: n for key, n in on.items() if n} != want:
         raise AssertionError(f"a full-width prefill launched {on}; want "
                              f"{want} only")
+    if routes["hopper"] != cfg.n_layers:
+        raise AssertionError(f"the prefill's flash launches took the routes "
+                             f"{routes}; want all {cfg.n_layers} on hopper")
     if (logits.shape != (B, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite [4, V]")
@@ -565,9 +614,10 @@ def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     scan_ms = on["scan"] * row["ms"]
     flash_ms = sum(flash_t[w]["ms"] for w in windows)
     print(f"prefill hymba-1.5b [{B} x {S}] {cfg.activ_dtype}: wall "
-          f"{wall * 1e3:.2f} ms, {B * S / wall:.0f} tokens/s, "
+          f"{wall * 1e3:.2f} ms (the host returned from the call after "
+          f"{enqueue * 1e3:.2f} ms), {B * S / wall:.0f} tokens/s, "
           f"{on['scan']} selective_scan and {on['flash']} flash "
-          f"launches; the kernels {scan_ms:.2f} + "
+          f"launches (flash by route {routes}); the kernels {scan_ms:.2f} + "
           f"{flash_ms:.2f} ms = {(scan_ms + flash_ms) / (wall * 1e3):.1%} of "
           f"the wall; peak memory {peak:.2f} GiB")
 
@@ -1009,6 +1059,7 @@ def main() -> int:
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        flash.zero_launches()
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -1305,19 +1356,24 @@ def main() -> int:
 
     host_s, gc_s = {}, {}
 
-    def router_ratio(baskets, min_support, label, n_tiles=N_TILES):
+    def router_ratio(baskets, min_support, label, reps, n_tiles=N_TILES):
         """The router's cost, measured two ways on one corpus.
 
         B11's way (``benchmarks/bench_algorithms.py``): build apriori,
         Eclat and auto with ``make_miner`` once, outside the timed window,
-        warm each with one ``run``, then time ``B11_REPS`` interleaved
+        warm each with one ``run``, then time ``reps`` interleaved
         ``miner.run`` calls per arm (each ending in a synchronise); the
         ratio of auto's median to the best explicit median is B11's gated
-        number (1.1).  The stricter way times ``make_miner`` (and so the
-        density scan) plus a cold ``run`` in each of three mines a side,
-        in turns.  Prints both ratios beside every wall, Eclat's
-        columnize times and the collector's pauses in each mine, and
-        returns {"b11": ratio, "make_miner": ratio}."""
+        number (1.1).  Every rep counts: none is dropped or trimmed.  Its
+        90% interval comes from a seeded bootstrap over each arm's reps;
+        the ratio over the first ``B11_REPS`` reps alone is what
+        bench_algorithms.py's three reps would have read.  The stricter
+        way times ``make_miner`` (and so the density scan) plus a cold
+        ``run`` in each of three mines a side, in turns.  Prints the
+        ratios beside every wall, Eclat's columnize times and the
+        collector's pauses in each mine, and returns {"b11": ratio,
+        "b11_ci90": [low, high], "b11_first3": ratio, "make_miner":
+        ratio}."""
         t0 = time.perf_counter()
         stats = density_stats(baskets)
         scan_s = time.perf_counter() - t0
@@ -1348,7 +1404,7 @@ def main() -> int:
             miners[algorithm].run(baskets)                 # warm-up
         torch.cuda.synchronize()
         runs = {a: [] for a in order}
-        for _ in range(B11_REPS):
+        for _ in range(reps):
             for algorithm, miner in miners.items():
                 gc_pause["s"] = 0.0
                 t0 = time.perf_counter()
@@ -1360,10 +1416,20 @@ def main() -> int:
                                          "mines another answer")
                 runs[algorithm].append((wall, gc_pause["s"]))
         del miners, res
-        b11_median = {a: float(np.median([w for w, _ in runs[a]]))
-                      for a in order}
-        b11 = b11_median["auto"] / min(b11_median["apriori"],
-                                       b11_median["eclat"])
+        walls_by_arm = {a: np.array([w for w, _ in runs[a]]) for a in order}
+
+        def ratio_of_medians(med):
+            return med["auto"] / min(med["apriori"], med["eclat"])
+        b11 = ratio_of_medians({a: np.median(w)
+                                for a, w in walls_by_arm.items()})
+        first3 = ratio_of_medians({a: np.median(w[:B11_REPS])
+                                   for a, w in walls_by_arm.items()})
+        boot_rng = np.random.default_rng(0)
+        boot = np.array([ratio_of_medians({
+            a: np.median(boot_rng.choice(w, size=w.size))
+            for a, w in walls_by_arm.items()})
+            for _ in range(BOOTSTRAP_RESAMPLES)])
+        ci90 = [float(np.percentile(boot, 5)), float(np.percentile(boot, 95))]
 
         def by_arm(values, i):
             return "; ".join(f"{a} " + " / ".join(f"{v[i]:.4f}"
@@ -1373,15 +1439,20 @@ def main() -> int:
               f"{scan_s:.4f} s (an int64-accumulating sum of the bitmap: "
               f"{int64_s:.4f} s)")
         print(f"router {label}, B11's way (make_miner once, one warm run, "
-              f"{B11_REPS} interleaved runs): walls {by_arm(runs, 0)}; gc "
-              f"pauses in them {by_arm(runs, 1)}; B11 ratio (gate 1.1) = "
-              f"{b11:.3f} (medians)")
+              f"{reps} interleaved runs): walls {by_arm(runs, 0)}; gc "
+              f"pauses in them {by_arm(runs, 1)}")
+        print(f"router {label}, B11's way: ratio (gate 1.1) = {b11:.3f} "
+              f"(medians of {reps} reps), 90% interval [{ci90[0]:.3f}, "
+              f"{ci90[1]:.3f}] (bootstrap, {BOOTSTRAP_RESAMPLES} resamples, "
+              f"seed 0); {first3:.3f} over the first {B11_REPS} reps, as "
+              f"bench_algorithms.py ({B11_REPS} reps)")
         print(f"router {label}, make_miner + cold run: eclat columnize "
               + " / ".join(f"{c:.4f}" for _, c, _ in got["eclat"])
               + f" s; walls {by_arm(got, 0)}; gc pauses in them "
               f"{by_arm(got, 2)}; make_miner-inclusive ratio = {strict:.3f} "
               "(medians)")
-        return {"b11": b11, "make_miner": strict}
+        return {"b11": float(b11), "b11_ci90": ci90,
+                "b11_first3": float(first3), "make_miner": strict}
 
     got = make_miner(small, config=PipelineConfig(
         min_support=0.05, n_tiles=4, algorithm="eclat"))[0].run(small)
@@ -1415,10 +1486,11 @@ def main() -> int:
                                       for k, v in walls.items()))
     host_profile("eclat cuda mine", EclatMiner(config=PipelineConfig(
         min_support=MIN_SUPPORT, n_tiles=N_TILES)).run, T_all)
-    ratios = {"dense": router_ratio(T_all, MIN_SUPPORT, "dense")}
+    ratios = {"dense": router_ratio(T_all, MIN_SUPPORT, "dense",
+                                    ROUTER_REPS_DENSE)}
     T_b11 = generate_baskets(BasketConfig(**B11_CORPUS))
     ratios["b11"] = router_ratio(T_b11, B11_MIN_SUPPORT, "b11",
-                                 n_tiles=B11_N_TILES)
+                                 ROUTER_REPS_B11, n_tiles=B11_N_TILES)
     print("router ratios (B11's gate 1.1; printed, not enforced): "
           + json.dumps(ratios))
     del T_b11

@@ -11,78 +11,592 @@
 // Layout: q and out are [B, S, H, hd], k and v [B, S, KV, hd], contiguous,
 // the model's own layout, so no transposes are needed around the call.
 // Scores, softmax statistics and the output accumulator are float32; the
-// output is written in the input type.
-//
-// Bound: operations.  At gemma3-1b's prefill shape (B 4, S 2,048, H 4,
-// KV 1, hd 256) a global layer does 4*B*H*hd*sum_i(live keys) = 3.4e10
-// flops on 42 MB of q, k, v and out: 35 us at the bf16 tensor-core peak
-// against 13 us for the bytes.  Like the TPU kernel, both kernels here keep
-// the [S, S] score matrix out of device memory.
-//
-// Shared design.  One block per (b*h, 64-query tile).  The query tile is
-// staged once in shared memory; the block then walks, in order, only the
-// KV tiles that hold a live key for some query of its tile, staging each K
-// and V tile in shared memory.  Tiles that are fully masked (past the
-// causal diagonal, or before the window of the tile's first query) are
-// never loaded, as the TPU kernel's pl.when skips them.  A row's running
-// max m and sum l, and the rescale of its accumulators, stay in the
-// registers of the threads that own the row.  Probabilities enter the P.V
+// output is written in the input type.  Probabilities enter the P.V
 // product rounded to the input type, as the TPU kernel's p.astype(v.dtype)
-// does, while l sums them unrounded.
+// does, while the row sum l adds them unrounded.
 //
-// bf16 (the model's type): tensor cores through mma.sync m16n8k16 (bf16
-// in, float32 accumulate), 4 warps of 16 query rows each.  A warp's S tile
-// stays in its mma accumulators: the 4 lanes of a quad hold one row's
-// scores, so a row's max and sum meet in two xor-shuffles, and the
-// accumulator layout of two adjacent 8-key tiles is exactly the operand
-// layout of one 16-key step of P.V, so P never leaves registers.  V is
-// staged transposed so both products read their B operand as 32-bit pairs.
-// Shared-memory rows are padded by 8 elements (16 bytes) so the 8 rows a
-// fragment load touches fall in different banks.  wgmma and TMA, with a
-// pipelined producer, are later work.
+// Bound: operations.  A call does 4*B*H*hd*sum_i(live keys) flops.  At
+// gemma3-1b's global layer (B 4, S 2,048, H 4, KV 1, hd 256) that is
+// 3.4e10 flops on 42 MB of q, k, v and out: 35 us at the bf16 tensor-core
+// peak against 13 us for the bytes; at its 512-key window 1.5e10 (15 us).
+// At hymba-1.5b's (H 25, KV 5, hd 64) window 1,024 it is 4.0e10 (41 us),
+// at window 0 5.4e10 (54 us).  Like the TPU kernel, every route keeps the
+// [S, S] score matrix out of device memory, and never loads a KV tile
+// that the causal mask or the window removes entirely (the TPU kernel's
+// pl.when).
 //
-// float32 (the comparisons): CUDA cores, exact float32 products.  A 16 x
-// 16 thread grid owns 4 query rows per thread, scores against the key
-// columns tx, tx+16, ... (a row's max and sum meet in four xor-shuffles
-// within a half-warp) and the same rows' output columns tx, tx+16, ...;
-// probabilities pass through shared memory; Q and K rows have an odd
-// pitch (hd + 1 floats) so the two half-warps' rows fall in different
-// banks.
+// Three routes; flash_attention_launch picks one by type and head size:
 //
-// Shared memory at hd 256: 71 KB (bf16) and 140 KB (float32), past the
-// 48 KB default: the launcher raises the block's dynamic limit each time.
+// bf16 at hd 64, 128, 256 (the models' calls): the Hopper kernel below.
+//   One block per (b*h, query tile) of a producer warpgroup and two or
+//   three consumer warpgroups of 64 query rows each; the heaviest query
+//   tiles are issued first so the causal imbalance does not set the tail.
+//   The producer warpgroup gives up its registers (setmaxnreg) and one of
+//   its threads loads the query tile once, then every live K and V tile
+//   into a ring of shared-memory stages, by TMA from tensor maps over the
+//   [B, S, heads, hd] tensors (64-column slabs with 128-byte swizzle; rows
+//   past S arrive as zeros).  Each stage has a full barrier for K, one for
+//   V, and an empty barrier that every consumer warp arrives at when done
+//   with it.  In each consumer, S = Q.K^T is wgmma with both operands in
+//   shared memory; the online softmax runs on its float32 accumulators
+//   (the max kept in unscaled scores, so a score costs one FMA with
+//   scale*log2(e) and one ex2; a row's four threads meet in two shuffles);
+//   O += P.V is wgmma with P from registers (the S accumulator rounded to
+//   bf16 in place is exactly the A-operand layout) and V read transposed
+//   from shared memory by the descriptor, never by hand.  Only the tiles
+//   that cross the diagonal or the window's edge for some row of the
+//   warpgroup run the per-element mask, in a branch of its own.  Tiles
+//   (query rows x keys x stages, consumers): hd 256 128 x 64 x 2, two
+//   (193 KB of shared memory); hd 128 128 x 128 x 2, two (161 KB); hd 64
+//   192 x 128 x 3, three (121 KB: a third consumer hides more of the
+//   latency of each warpgroup's chain of product, softmax, product).
+//
+// bf16 at hd 16 and 32 (the smoke configurations): tensor cores through
+//   mma.sync m16n8k16, 4 warps of 16 query rows per 64-row block, K and V
+//   staged by plain loads; too narrow for 64-column TMA slabs.
+//
+// float32 (the comparisons' exact twin): CUDA cores, exact float32
+//   products.
 //
 // NEG_INF is -1e30, not -inf, as in the TPU kernel: a row with no live
-// key in its first tile then holds m = -1e30 and p = 1 for a while, and
-// the first live key's correction factor exp(-1e30 - m) = 0 wipes that
-// out.  The diagonal is always live, so every row ends with a real max.
+// key in its first tile then holds m = -1e30 and, on the mma.sync and
+// float32 routes, p = 1 for a while (p = 0 on the Hopper route), and the
+// first live key's correction factor exp(-1e30 - m) = 0 wipes that out.
+// The diagonal is always live, so every row ends with a real max.
 
 #include <cstdint>
+#include <cuda.h>          // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows per block
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ bool live_key(int kj, int qi, int window) {
   return kj <= qi && (window <= 0 || kj > qi - window);
 }
 
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16 at hd 64-256: TMA ring, a producer thread, wgmma
 // ---------------------------------------------------------------------------
 
+constexpr int kSlab = 64;            // columns in one 128-byte swizzled row
+
+// keys a tile, stages in the ring, consumer warpgroups of 64 query rows,
+// and the registers a consumer thread takes: 65,536 a block, of which the
+// producer warpgroup keeps 24 a thread
+template <int K, int Stages, int Consumers, int Regs>
+struct HopperTiling {
+  static constexpr int BK = K, kStages = Stages, kConsumers = Consumers;
+  static constexpr int kRegs = Regs;
+  static constexpr int kBQ = 64 * Consumers;               // query rows
+  static constexpr int kThreads = 128 * (1 + Consumers);
+};
+template <int HD> struct HopperTile;
+template <> struct HopperTile<64> : HopperTiling<128, 3, 3, 160> {};
+template <> struct HopperTile<128> : HopperTiling<128, 2, 2, 240> {};
+template <> struct HopperTile<256> : HopperTiling<64, 2, 2, 240> {};
+
+template <int HD>
+constexpr size_t hopper_smem_bytes() {
+  using T = HopperTile<HD>;
+  // 1 KB to align the base to the swizzle atom, Q, the K and V stages,
+  // then the barriers: Q, full K and V per stage, empty per stage
+  return 1024 + 2 * (T::kBQ * HD + 2 * T::kStages * T::BK * HD)
+         + 8 * (1 + 3 * T::kStages);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-d tensor map (coordinates innermost first) into shared
+// memory, completing bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma operand descriptor for a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (each >> 4), layout type 1 (128B
+// swizzle) in bits 62-63.  K-major (Q, K): rows of 128 bytes, 8-row
+// groups 1,024 bytes apart (stride), leading offset unused.  MN-major (V
+// read transposed): the leading offset steps from one 64-column slab to
+// the next, the stride from one 8-key group to the next.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x by the special-function unit alone (relative error about 2^-22;
+// exp2f adds a range reduction for results below 2^-126)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The wgmma shapes used: m64nNk16, bf16 in, float32 accumulators, N/2 of
+// them a thread.  Accumulator 4j + e of a thread in warp w (lane = 4g + t)
+// is row 16w + g + 8(e / 2), column 8j + 2t + e % 2.
+
+// d[32] (+)= A[64x16] . B[16x64], A and B K-major in shared memory; d is
+// overwritten where accumulate is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64] (+)= A[64x16] . B[16x128], A and B K-major in shared memory; d is
+// overwritten where accumulate is 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[32] += A[64x16] . B[16x64], A from registers, B from shared memory
+// (MN-major, read transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A[64x16] . B[16x128], A from registers, B from shared memory
+// (MN-major, read transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[128] += A[64x16] . B[16x256], A from registers, B from shared memory
+// (MN-major, read transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(HopperTile<HD>::kThreads, 1)
+flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              __nv_bfloat16* __restrict__ out, int S, int H,
+                              int KV, int window, float scale_log2) {
+  constexpr int BK = HopperTile<HD>::BK;
+  constexpr int kStages = HopperTile<HD>::kStages;
+  constexpr int kBQ = HopperTile<HD>::kBQ;
+  constexpr int kSlabs = HD / kSlab;
+  constexpr uint32_t kRowBytes = 2 * kSlab;               // 128
+  constexpr uint32_t kQBytes = 2 * kBQ * HD;
+  constexpr uint32_t kTileBytes = 2 * BK * HD;             // one K or V tile
+  extern __shared__ __align__(1024) unsigned char hopper_smem[];
+  const uint32_t q_s = (smem_u32(hopper_smem) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + kQBytes;                      // + stage * tile
+  const uint32_t v_s = k_s + kStages * kTileBytes;
+  const uint32_t q_bar = v_s + kStages * kTileBytes;
+  const uint32_t full_k = q_bar + 8;                       // + 8 * stage
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty = full_v + 8 * kStages;
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int g = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;        // heaviest first
+  const int t_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int t_end = (min(q0 + kBQ, S) - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      // one arrival from each consumer warp frees the stage
+      mbar_init(empty + 8 * s, 4 * HopperTile<HD>::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load -------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, kQBytes);
+      for (int j = 0; j < kSlabs; ++j)
+        tma_load(q_s + j * kBQ * kRowBytes, &tm_q, q_bar, j * kSlab, h,
+                 q0, b);
+      for (int t = t_begin, i = 0; t <= t_end; ++t, ++i) {
+        const int s = i % kStages;
+        if (i >= kStages)   // the consumers released this stage's last use
+          mbar_wait(empty + 8 * s, ((i / kStages) - 1) & 1);
+        mbar_expect_tx(full_k + 8 * s, kTileBytes);
+        for (int j = 0; j < kSlabs; ++j)
+          tma_load(k_s + s * kTileBytes + j * BK * kRowBytes, &tm_k,
+                   full_k + 8 * s, j * kSlab, g, t * BK, b);
+        mbar_expect_tx(full_v + 8 * s, kTileBytes);
+        for (int j = 0; j < kSlabs; ++j)
+          tma_load(v_s + s * kTileBytes + j * BK * kRowBytes, &tm_v,
+                   full_v + 8 * s, j * kSlab, g, t * BK, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each -----------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        HopperTile<HD>::kRegs));
+    const int wgc = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int quad = lane / 4, pair = lane % 4;
+    const int r0 = q0 + 64 * wgc;                 // this warpgroup's rows
+    const int r_last = min(r0 + 63, S - 1);       // < r0 if it has none
+    const int row = r0 + 16 * warp + quad;        // this thread's: +0, +8
+    const uint32_t q_wg = q_s + 64 * wgc * kRowBytes;
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(q_bar, 0);
+
+    for (int t = t_begin, i = 0; t <= t_end; ++t, ++i) {
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = t * BK;
+      // uniform over the warpgroup: does any of its rows see a key here,
+      // and does any key need the per-element mask
+      const bool live = r0 <= r_last && k0 <= r_last &&
+                        (window <= 0 || k0 + BK - 1 > r0 - window);
+      const bool masked = k0 + BK - 1 > r0 ||
+                          (window > 0 && k0 <= r_last - window);
+      mbar_wait(full_k + 8 * s, parity);
+      if (live) {
+        // S = Q K^T over hd in 16-column steps, 4 steps a 64-column slab
+        float sc[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          wgmma_ss(sc,
+                   smem_desc(q_wg + (kk / 4) * kBQ * kRowBytes + col,
+                             16, 1024),
+                   smem_desc(k_s + s * kTileBytes + (kk / 4) * BK * kRowBytes
+                             + col, 16, 1024),
+                   kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // online softmax: m is kept in unscaled scores (the scale is
+        // positive), so p = exp2(s * scale_log2 - m * scale_log2) is one
+        // fused multiply-add and one exp2 a score
+        if (masked) {
+          // key k0 + c (c = 8j + 2 pair + e) is live for row qi when
+          // c <= qi - k0 and, with a window, c > qi - k0 - window
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int hi = row + 8 * half - k0 - 2 * pair;
+            const int lo = window > 0 ? hi - window : -(1 << 30);
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                if (8 * j + e > hi || 8 * j + e <= lo)
+                  sc[4 * j + 2 * half + e] = kNegInf;
+          }
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              mx = fmaxf(mx, sc[4 * j + 2 * half + e]);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[half], mx);
+          // a row with no live key yet keeps m = NEG_INF and p = 0: fma's
+          // unrounded product would leave -1e30 * scale - m_scaled a large
+          // residue of either sign, and exp2 of it 0 or inf
+          const float m_scaled = m_new == kNegInf ? 0.f : m_new * scale_log2;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[4 * j + 2 * half + e];
+              x = fast_exp2(fmaf(x, scale_log2, -m_scaled));
+              sum += x;
+            }
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          const float corr = fast_exp2((m[half] - m_new) * scale_log2);
+          l[half] = l[half] * corr + sum;
+          m[half] = m_new;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j) {
+            o[4 * j + 2 * half] *= corr;
+            o[4 * j + 2 * half + 1] *= corr;
+          }
+        }
+
+        // P as the A operand: the accumulators of two adjacent 8-key
+        // column blocks are one 16-key step's fragment, rounded to bf16
+        uint32_t p[BK / 16][4];
+#pragma unroll
+        for (int c = 0; c < BK / 16; ++c)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            p[c][r] = pack_pair(sc[8 * c + 2 * r], sc[8 * c + 2 * r + 1]);
+
+        // O += P V, V's 16-key steps 16 rows (2,048 bytes) apart
+        mbar_wait(full_v + 8 * s, parity);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < BK / 16; ++c)
+          wgmma_rs(o, p[c],
+                   smem_desc(v_s + s * kTileBytes + c * 16 * kRowBytes,
+                             BK * kRowBytes, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+      } else {
+        // no row here sees this tile: wait for it to land all the same,
+        // so that this warp's arrival counts for this use of the stage
+        mbar_wait(full_v + 8 * s, parity);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);    // the stage is free
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qi = row + 8 * half;
+      if (qi <= r_last) {
+        const float inv = 1.f / fmaxf(l[half], 1e-30f);
+        __nv_bfloat16* dst =
+            out + ((static_cast<size_t>(b) * S + qi) * H + h) * HD + 2 * pair;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_pair(o[4 * j + 2 * half] * inv,
+                        o[4 * j + 2 * half + 1] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at hd 16 and 32: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Shared by this route and the float32 one: one block per (64-query tile,
+// b*h).  The query tile is staged once in shared memory; the block then
+// walks, in order, only the KV tiles that hold a live key for some query
+// of its tile, staging each K and V tile in shared memory with plain
+// loads.  A row's running max m and sum l, and the rescale of its
+// accumulators, stay in the registers of the threads that own the row.
+//
+// Here: 4 warps of 16 query rows each.  A warp's S tile stays in its mma
+// accumulators: the 4 lanes of a quad hold one row's scores, so a row's
+// max and sum meet in two xor-shuffles, and the accumulator layout of two
+// adjacent 8-key tiles is exactly the operand layout of one 16-key step of
+// P.V, so P never leaves registers.  V is staged transposed so both
+// products read their B operand as 32-bit pairs.  Shared-memory rows are
+// padded by 8 elements (16 bytes) so the 8 rows a fragment load touches
+// fall in different banks.
+
+constexpr int kBQ = 64;              // query rows per block
 constexpr int kMmaThreads = 128;     // 4 warps x 16 query rows
 
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c[16x8] += a[16x16] . b[16x8], bf16 operands, float32 accumulators
@@ -267,6 +781,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 // float32: exact products on the CUDA cores
 // ---------------------------------------------------------------------------
+//
+// A 16 x 16 thread grid owns 4 query rows per thread, scores against the
+// key columns tx, tx+16, ... (a row's max and sum meet in four
+// xor-shuffles within a half-warp) and the same rows' output columns tx,
+// tx+16, ...; probabilities pass through shared memory; Q and K rows have
+// an odd pitch (hd + 1 floats) so the two half-warps' rows fall in
+// different banks.  Shared memory at hd 256: 140 KB, past the 48 KB
+// default: the launcher raises the block's dynamic limit each time.
 
 constexpr int kF32Threads = 256;     // 16 x 16
 constexpr int kRows = kBQ / 16;      // query rows per thread
@@ -434,8 +956,78 @@ struct Args {
   cudaStream_t stream;
 };
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's
+// entry-point query so the library needs no link against libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a [B, S, heads, hd] bf16 tensor read in boxes of 64 columns x rows of
+// one head, 128-byte swizzled; rows past S read as zeros
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
+                int S, int heads, int hd, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = 2ull * hd;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {kSlab, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_hopper(const Args& a) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int BK = HopperTile<HD>::BK;
+  constexpr int kBQ = HopperTile<HD>::kBQ;
+  if (!encode_map(encode, &tm_q, a.q, a.B, a.S, a.H, HD, kBQ) ||
+      !encode_map(encode, &tm_k, a.k, a.B, a.S, a.KV, HD, BK) ||
+      !encode_map(encode, &tm_v, a.v, a.B, a.S, a.KV, HD, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = hopper_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_hopper_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.B * a.H, (a.S + kBQ - 1) / kBQ);
+  constexpr int threads = HopperTile<HD>::kThreads;
+  flash_attention_hopper_kernel<HD><<<grid, threads, smem, a.stream>>>(
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.out), a.S, a.H,
+          a.KV, a.window, a.scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD, int BK>
-int launch_bf16(const Args& a) {
+int launch_mma(const Args& a) {
   constexpr size_t smem = mma_smem_bytes<HD, BK>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_mma_kernel<HD, BK>,
@@ -469,7 +1061,9 @@ int launch_f32(const Args& a) {
 
 // q, out: [B, S, H, hd]; k, v: [B, S, KV, hd]; all contiguous, one dtype
 // (is_bf16 ? bf16, 16-byte aligned : float32); H % KV == 0; hd in
-// {16, 32, 64, 128, 256}.
+// {16, 32, 64, 128, 256}.  The route (kernel/flash_attention/kernel.py's
+// route()): bf16 at hd 64-256 the Hopper kernel, bf16 at hd 16-32 the
+// mma.sync kernel, float32 the CUDA-core kernel.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int H, int KV, int hd, int window,
@@ -479,11 +1073,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                static_cast<cudaStream_t>(stream)};
   if (is_bf16) {
     switch (hd) {
-      case 16: return launch_bf16<16, 64>(a);
-      case 32: return launch_bf16<32, 64>(a);
-      case 64: return launch_bf16<64, 64>(a);
-      case 128: return launch_bf16<128, 64>(a);
-      case 256: return launch_bf16<256, 32>(a);
+      case 16: return launch_mma<16, 64>(a);
+      case 32: return launch_mma<32, 64>(a);
+      case 64: return launch_hopper<64>(a);
+      case 128: return launch_hopper<128>(a);
+      case 256: return launch_hopper<256>(a);
     }
   } else {
     switch (hd) {

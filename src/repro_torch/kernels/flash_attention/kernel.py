@@ -4,12 +4,15 @@ Hopper kernel ``csrc/flash_attention.cu``.
 Replaces the reference's ``flash_attention_pallas``
 (``repro/kernels/flash_attention/kernel.py``).  The kernel reads q, k and v
 in the model's [B, S, heads, hd] layout, walks the live KV tiles of each
-64-query tile with an online softmax in float32, and skips the tiles the
+query tile with an online softmax in float32, and skips the tiles the
 causal mask or the sliding window removes entirely; the [S, S] score
 matrix never reaches device memory.  On H100 the work is bound by
-operations (flops at the bf16 tensor-core peak): bf16 inputs run on the
-tensor cores (``mma.sync``), float32 inputs on the CUDA cores with exact
-float32 products.  See the source for the design.
+operations (flops at the bf16 tensor-core peak).  :func:`route` names the
+kernel a call takes: ``"hopper"`` (bf16 at hd 64-256, the models' calls:
+TMA into a ring of shared-memory stages, a producer thread, ``wgmma`` for
+both products), ``"mma"`` (bf16 at hd 16 and 32: ``mma.sync``) or
+``"f32"`` (float32: exact products on the CUDA cores).  See the source for
+the design.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ from repro_torch.kernels import loader
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+HOPPER_HEAD_DIMS = (64, 128, 256)   # bf16 head sizes of the wgmma kernel
 DTYPES = (torch.bfloat16, torch.float32)
+ROUTES = ("hopper", "mma", "f32")
 MAX_GRID_Y = 65_535          # blocks along b·h
 
 # the kernel's function as plain tensor ops: the oracle's arithmetic
@@ -38,6 +43,14 @@ def _launcher():
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA call of this type and head size launches, as
+    ``flash_attention_launch`` chooses it."""
+    if dtype == torch.float32:
+        return "f32"
+    return "hopper" if hd in HOPPER_HEAD_DIMS else "mma"
 
 
 def _check_inputs(q, k, v, window):
@@ -71,7 +84,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, S, KV, hd], keys kept where ``kj <= qi`` and, for ``window > 0``,
     ``kj > qi - window``.  A CUDA tensor goes through the kernel
     (contiguous, 16-byte aligned inputs), a CPU tensor through the plain
-    version.
+    version.  Each launch adds one to ``flash_attention_fwd.launches`` and
+    to its :func:`route`'s count in ``.launches_by_route``.
     """
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
@@ -98,7 +112,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(q.dtype == torch.bfloat16), stream)
     loader.check(lib, err, "flash_attention launch")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route(q.dtype, hd)] += 1
     return out
 
 
-flash_attention_fwd.launches = 0
+def zero_launches() -> None:
+    """Set the total and every route's count of launches to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+zero_launches()

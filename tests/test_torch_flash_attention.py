@@ -5,7 +5,8 @@ to the reference's Pallas kernel in interpret mode and to the reference's
 jnp oracle ``flash_attention_ref``, on the same numpy-seeded inputs, at
 the tolerances of ``tests/test_kernels.py`` (2e-5 in float32, 2e-2 in
 bfloat16).  The CUDA kernel itself is compared with the same plain version
-on the card by ``chip_smoke.py``.
+on the card by ``chip_smoke.py`` and by
+``tests/test_torch_flash_attention_card.py``.
 """
 import numpy as np
 import pytest
@@ -126,3 +127,43 @@ def test_wrapper_takes_python_int_windows_only():
         kernel.flash_attention_fwd(q, q, q, window=torch.tensor(4))
     # ops accepts any integer, as the reference's does
     assert ops.flash_attention(q, q, q, window=np.int64(4)).shape == q.shape
+
+
+# the two model head layouts (gemma3-1b: 4 query heads over 1 kv head of
+# 256; hymba-1.5b: 25 over 5 of 64) at lengths that end inside or just past
+# a 128-row query tile, with windows from one key to the whole length
+MODEL_LAYOUTS = [(4, 1, 256), (25, 5, 64)]
+MODEL_CASES = sorted({(H, KV, hd, S, win)
+                      for H, KV, hd in MODEL_LAYOUTS
+                      for S in (1, 77, 129, 200)
+                      for win in (0, 1, 16, S - 1)})
+
+
+@pytest.mark.parametrize("H,KV,hd,S,win", MODEL_CASES)
+def test_plain_version_matches_reference_at_model_layouts(H, KV, hd, S, win):
+    """bfloat16, the models' type, at tests/test_kernels.py's 2e-2."""
+    (jq, jk, jv), (q, k, v) = _inputs(1, S, H, KV, hd, "bfloat16", S + win)
+    got = ops.flash_attention(q, k, v, window=win)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got.float().numpy(),
+           jnp_flash_attention_ref(jq, jk, jv, window=win), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", kernel.DTYPES, ids=str)
+@pytest.mark.parametrize("hd", kernel.HEAD_DIMS)
+def test_route_by_type_and_head_size(dtype, hd):
+    """bf16 at hd 64-256 takes the TMA/wgmma kernel, bf16 at hd 16 and 32
+    the mma.sync one, float32 the CUDA-core one."""
+    want = ("f32" if dtype == torch.float32
+            else "hopper" if hd in (64, 128, 256) else "mma")
+    assert kernel.route(dtype, hd) == want
+    assert want in kernel.ROUTES
+
+
+def test_cpu_calls_count_no_launch_on_any_route():
+    _, (q, k, v) = _inputs(1, 16, 4, 1, 64, "bfloat16", 5)
+    before = dict(kernel.flash_attention_fwd.launches_by_route)
+    kernel.flash_attention_fwd(q, k, v, window=0)
+    assert kernel.flash_attention_fwd.launches_by_route == before
+    assert sorted(before) == sorted(kernel.ROUTES)
+
