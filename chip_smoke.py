@@ -50,8 +50,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    kernel exactly against its plain version at the shapes serving gives
    it (that index against batches of 8 and 64 corpus baskets), at ragged
    shapes, and at a wider index of 16,384 random rules; time both at the
-   64-basket shape and the wide one, beside the plain versions and, for
-   the int8 kernel, ``torch._int_mm`` plus the compare-and-weight;
+   64- and 8-basket shapes and the wide one, beside the plain versions
+   and, for the int8 kernel, ``torch._int_mm`` plus the compare-and-weight
+   (above 16 baskets: ``_int_mm`` takes no fewer rows), printing the
+   int8 kernel's launch geometry; then hold the int8 kernel exactly
+   against its plain version at the geometries it did not choose (item
+   axis over clusters of 1, 2 and 4 CTAs; queries on wgmma's M side with
+   tiles of 16 or 32 rules) and time each at both buckets;
 6. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
    times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
    scores — and require equal recommendations and reports, launches of
@@ -102,7 +107,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    it at the prefill's shape beside the plain version and its bound;
    draw rwkv6-7b at full width (32 layers, d 4,096, 7,584,878,592
    parameters) in bf16 on the card and run ``make_prefill_step`` at
-   [4 x 2048] tokens, requiring exactly 32 wkv6 launches and no other;
+   [4 x 2048] tokens, requiring exactly 32 wkv6 launches and no other, and
+   print its wall beside the time the host took to return from the call;
    time one layer's time-mix inputs, WKV, group norm and output, and
    channel-mix; cast the weights to float32 and require the prefill's
    logits at [2 x 256] to match ``prefill_into_cache`` within a relative
@@ -835,6 +841,7 @@ def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     logits = step(params, {"tokens": tokens})
+    enqueue = time.perf_counter() - t0     # the host's share of the wall
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     on = main_path = read_counts()
@@ -848,7 +855,8 @@ def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     wkv_ms = on["wkv"] * row["ms"]
     print(f"prefill rwkv6-7b [{B} x {S}] {cfg.activ_dtype}: wall "
-          f"{wall * 1e3:.2f} ms, {B * S / wall:.0f} tokens/s, {on['wkv']} "
+          f"{wall * 1e3:.2f} ms (the host returned from the call after "
+          f"{enqueue * 1e3:.2f} ms), {B * S / wall:.0f} tokens/s, {on['wkv']} "
           f"wkv6 launches; the kernel {wkv_ms:.2f} ms = "
           f"{wkv_ms / (wall * 1e3):.1%} of the wall; peak memory "
           f"{peak:.2f} GiB")
@@ -1610,10 +1618,13 @@ def main() -> int:
     def time_rule_match(Qm, Am, s_f, cf):
         Qmw, Amw, s_i = fused.pack_words(Qm), fused.pack_words(Am), \
             s_f.to(torch.int32)
-        check(int_mm_scores(Qm, Am, s_i, cf),
-              rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf),
-              "torch._int_mm yardstick")
         B_, R_ = Qm.shape[0], Am.shape[0]
+        # torch._int_mm takes more than 16 rows: no one call below that
+        int_mm = B_ > 16
+        if int_mm:
+            check(int_mm_scores(Qm, Am, s_i, cf),
+                  rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf),
+                  "torch._int_mm yardstick")
         W_ = Ip // 32
         bound = {
             "rm_packed": {"operations": B_ * R_ * W_ / popc_per_s * 1e3,
@@ -1639,20 +1650,49 @@ def main() -> int:
                                   .rule_scores_int8_plain(Qm, Am, s_f, cf),
                                   reps=3),
                 library_ms=_cuda_ms(torch, lambda: int_mm_scores(
-                    Qm, Am, s_i, cf))),
+                    Qm, Am, s_i, cf)) if int_mm else None),
         }
+        geom = rm_kernel.geometry(B_, R_, Ip, props.multi_processor_count)
+        out["rm_int8"]["geometry"] = geom.describe(B_, R_, Ip)
         for k, v in out.items():
             by = max(bound[k], key=bound[k].get)
             v.update(bound_ms=bound[k][by], bound_by=by)
             print(f"{k} [{B_}, {R_}, {Ip}]: kernel {v['ms']:.4f} ms, plain "
                   f"{v['plain_ms']:.4f} ms, library {v['library_ms']} ms, "
-                  f"bound {v['bound_ms']:.5f} ms ({by})")
+                  f"bound {v['bound_ms']:.5f} ms ({by})"
+                  + (f"; launch: {v['geometry']}" if "geometry" in v else ""))
         return out
 
+    def time_rm_int8_designs(Qm, Am, s_f, cf):
+        """rule_match_int8 at the geometries it did not choose, each held
+        exactly against the plain version: the item axis split over
+        clusters of 1-4 CTAs, and the queries on wgmma's M side with tiles
+        of 16 or 32 rules."""
+        B_, R_ = Qm.shape[0], Am.shape[0]
+        want = rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf)
+        n = rm_kernel.geometry(B_, R_, Ip).n
+        times = {}
+        for geom in ([rm_kernel.Geometry(True, 1, n, c) for c in (1, 2, 4)]
+                     + [rm_kernel.Geometry(False, 1, r, c)
+                        for r, c in ((16, 1), (32, 1), (32, 4))]):
+            check(rm_kernel.rule_scores_int8(Qm, Am, s_f, cf, geom), want,
+                  f"rm_int8 [{B_}, {R_}, {Ip}] at {geom}")
+            times[geom.describe(B_, R_, Ip)] = _cuda_ms(
+                torch, lambda: rm_kernel.rule_scores_int8(Qm, Am, s_f, cf,
+                                                          geom))
+        print(f"rm_int8 [{B_}, {R_}, {Ip}] at other geometries (exact): "
+              + "; ".join(f"{k}: {v:.5f} ms" for k, v in times.items()))
+        return times
+
     timing.update(time_rule_match(baskets, A8, sizes_f, conf))
+    for k, v in time_rule_match(baskets[:8], A8, sizes_f, conf).items():
+        timing[k]["bucket8"] = v
     for k, v in time_rule_match(baskets, A_wide, sizes_wide,
                                 conf_wide).items():
         timing[k]["wide"] = dict(v, rules=WIDE_RULES)
+    for b in (64, 8):
+        timing["rm_int8"][f"designs_bucket{b}"] = time_rm_int8_designs(
+            baskets[:b], A8, sizes_f, conf)
 
     # ---- 6. the serving main path, three ways -------------------------
     queries = [Query.of(np.flatnonzero(row).tolist())

@@ -1,7 +1,7 @@
 """Int8 tensor-core rule matching: serving's ``mxu`` variant.
 
 Replaces the reference's ``rule_scores_pallas``
-(``repro/kernels/rule_match/kernel.py``), which runs the antecedent
+(``repro/kernels/rule_match/kernel.py:72``), which runs the antecedent
 containment test as an int8 matmul on the TPU's matrix unit:
 
   score[b, r] = [ Σ_i Q[b, i]·A[r, i] == sizes[r] ] · conf[r]
@@ -9,18 +9,24 @@ containment test as an int8 matmul on the TPU's matrix unit:
 At the serving shapes (a batch of 8 or 64 queries against the whole
 index) the bytes bound it on H100: one read of the [R, I] antecedents and
 one write of the [B, R] float scores outweigh 2·B·R·I int8 operations at
-1,979 dense TOP/s.  The kernel issues ``mma.sync`` m16n8k32 s8×s8→s32 on
-the tensor cores (exact integer accumulation), with the ``== sizes``
-compare and the ``conf`` weight in the epilogue, so no integer [B, R]
-matrix is written.  A block owns 16 queries × 64 rules and stages 64-item
-slices of both in padded shared memory; serving pads B to 8, so the rows of
-the 16-row fragment past B are zeros that are never stored.  It uses no
-TMA or ``wgmma`` yet.
+1,979 dense TOP/s.  At the serving shape those bytes take 0.36 µs, so the
+kernel is built against latency: the rules are the M operand of ``wgmma``
+m64nNk32 s8 (the batch, rounded up to 8, 16, 32 or 64, is N), one thread
+loads every 128-item slab of both operands at once by TMA onto one
+``mbarrier`` a slab, and a tile's item axis is split over a cluster of up
+to 8 CTAs whose int32 partials meet in distributed shared memory before
+the ``== sizes`` compare and the ``conf`` weight.  :func:`geometry` picks
+the launch geometry; ``csrc/rule_match_int8.cu`` has the design.  It takes
+0.0055 ms at the serving shape [64 × 896 × 1,024], 0.0048 at bucket 8 and
+0.0092 at [64 × 16,384 × 1,024], against 0.0155 and 0.0244 for
+``torch._int_mm`` plus the compare and weight (chip_smoke, NVIDIA H100
+80GB HBM3, 700.00 W).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -28,8 +34,53 @@ from repro_torch.kernels import loader
 from repro_torch.kernels.rule_match.ref import rule_scores_ref
 from repro_torch.kernels.support_count.ref import MAX_EXACT_ITEMS
 
-# the kernel stages the item axis 64 bytes at a time with 16-byte loads
+# the wrapper's contract on the item axis (the kernel's TMA loads need
+# rows of a multiple of 16 bytes and zero-fill a ragged last slab)
 ITEM_MULTIPLE = 64
+SLAB = 128            # items a TMA box and a swizzled shared-memory row hold
+QUERY_TILES = (8, 16, 32, 64)   # wgmma N: queries a tile
+CLUSTERS = (1, 2, 4, 8)         # CTAs splitting a tile's item axis
+H100_SMS = 132
+
+
+class Geometry(NamedTuple):
+    """A launch of the kernel: rules (or queries) on wgmma's M side,
+    warpgroups a CTA (64 rows of M each), N (rows of the other operand a
+    tile) and the cluster size splitting a tile's item axis."""
+    rules_on_m: bool
+    warpgroups: int
+    n: int
+    cluster: int
+
+    def describe(self, B: int, R: int, I: int) -> str:
+        rules = 64 * self.warpgroups if self.rules_on_m else self.n
+        queries = self.n if self.rules_on_m else 64
+        tiles = -(-R // rules) * -(-B // queries)
+        return (f"{'rules' if self.rules_on_m else 'queries'} on M, tiles "
+                f"of {rules} rules x {queries} queries, {tiles} tiles x "
+                f"cluster {self.cluster} = {tiles * self.cluster} CTAs of "
+                f"{128 * self.warpgroups} threads")
+
+
+def geometry(B: int, R: int, I: int, sms: int = H100_SMS) -> Geometry:
+    """The launch geometry for [B, I] queries against [R, I] rules.
+
+    N is the batch rounded up to 8, 16, 32 or 64 (batches above 64 take
+    several query tiles).  A CTA takes 128 rules (two warpgroups) once 64-
+    rule tiles would overfill one wave of ``sms`` CTAs, so a wide index is
+    read once in one wave.  The cluster then doubles, up to 8 and up to
+    one CTA a 128-item slab, while the CTAs still fit in one wave.
+    """
+    n = next(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
+    q_tiles = -(-B // n)
+    warpgroups = 2 if -(-R // 64) * q_tiles > sms else 1
+    tiles = -(-R // (64 * warpgroups)) * q_tiles
+    slabs = -(-I // SLAB)
+    cluster = 1
+    while (2 * cluster <= CLUSTERS[-1] and 2 * cluster <= slabs
+           and 2 * cluster * tiles <= sms):
+        cluster *= 2
+    return Geometry(True, warpgroups, n, cluster)
 
 
 def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
@@ -45,7 +96,7 @@ def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
 def _launcher():
     lib = loader.load("rule_match_int8")
     fn = lib.rule_match_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -68,14 +119,20 @@ def _check_inputs(Q, A, sizes, conf):
             raise ValueError(f"{name} is on {x.device}, Q on {Q.device}")
 
 
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
-                     conf: torch.Tensor) -> torch.Tensor:
+                     conf: torch.Tensor,
+                     geom: Geometry | None = None) -> torch.Tensor:
     """Int8-dot rule scores, ``[B, R]`` float32.
 
     Q: [B, I] and A: [R, I] int8 0/1, sizes: [R] float32 (-1 on padded
     rows), conf: [R] float32.  A CUDA tensor goes through the kernel
-    (``I % 64 == 0``, contiguous, 16-byte aligned); a CPU tensor through
-    the plain version.
+    (``I % 64 == 0``, contiguous, 16-byte aligned) at ``geom``, by default
+    :func:`geometry`'s; a CPU tensor through the plain version.
     """
     _check_inputs(Q, A, sizes, conf)
     if Q.device.type == "cpu":
@@ -91,18 +148,21 @@ def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
         raise ValueError(f"{I} items: the float32 compare is exact only "
                          f"below {MAX_EXACT_ITEMS}")
     for name, x in (("Q", Q), ("A", A), ("sizes", sizes), ("conf", conf)):
-        if not x.is_contiguous() or (x.dim() == 2 and x.data_ptr() % 16):
-            raise ValueError(f"{name} must be contiguous"
-                             + (" and 16-byte aligned" if x.dim() == 2
-                                else ""))
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
     out = torch.empty((B, R), dtype=torch.float32, device=Q.device)
     if B == 0 or R == 0:
         return out
+    if geom is None:
+        geom = geometry(B, R, I, _sms(Q.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Q.data_ptr(), A.data_ptr(), sizes.data_ptr(),
-                 conf.data_ptr(), out.data_ptr(), B, R, I, stream)
+                 conf.data_ptr(), out.data_ptr(), B, R, I,
+                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
+                 stream)
     loader.check(lib, err, "rule_match_int8 launch")
     rule_scores_int8.launches += 1
     return out

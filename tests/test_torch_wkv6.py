@@ -194,9 +194,17 @@ def card():
     return torch.device("cuda", 0)
 
 
+# the model's head size across the kernel's 16-step stages (T = 15, 16,
+# 17, 49 and one step) with B·H = 3; n = 8 and 16 with one (b, h); and
+# the earlier mixed shapes
+CARD_SHAPES = ([(1, T, 3, 64) for T in (15, 16, 17, 49, 1)]
+               + [(1, T, 1, n) for n in (8, 16) for T in (17, 49)]
+               + [(2, 128, 4, 64), (1, 77, 3, 16), (2, 1, 2, 32),
+                  (3, 40, 2, 8)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,n", [(2, 128, 4, 64), (1, 77, 3, 16),
-                                     (2, 1, 2, 32), (3, 40, 2, 8)])
+@pytest.mark.parametrize("B,T,H,n", CARD_SHAPES)
 def test_kernel_matches_plain_version_on_the_card(card, B, T, H, n):
     arrays = [torch.from_numpy(x).to(card)
               for x in _inputs(B, T, H, n, B * T + n)]
