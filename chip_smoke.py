@@ -54,9 +54,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and, for the int8 kernel, ``torch._int_mm`` plus the compare-and-weight
    (above 16 baskets: ``_int_mm`` takes no fewer rows), printing the
    int8 kernel's launch geometry; then hold the int8 kernel exactly
-   against its plain version at the geometries it did not choose (item
-   axis over clusters of 1, 2 and 4 CTAs; queries on wgmma's M side with
-   tiles of 16 or 32 rules) and time each at both buckets;
+   against its plain version with its item axis over clusters of 1, 2
+   and 4 CTAs in place of the chosen 8, and time each at both buckets;
 6. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
    times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
    scores — and require equal recommendations and reports, launches of
@@ -1663,24 +1662,22 @@ def main() -> int:
                   + (f"; launch: {v['geometry']}" if "geometry" in v else ""))
         return out
 
-    def time_rm_int8_designs(Qm, Am, s_f, cf):
-        """rule_match_int8 at the geometries it did not choose, each held
-        exactly against the plain version: the item axis split over
-        clusters of 1-4 CTAs, and the queries on wgmma's M side with tiles
-        of 16 or 32 rules."""
+    def time_rm_int8_clusters(Qm, Am, s_f, cf):
+        """rule_match_int8 with its tiles' item axis split over clusters of
+        1, 2 and 4 CTAs in place of the chosen one, each held exactly
+        against the plain version."""
         B_, R_ = Qm.shape[0], Am.shape[0]
         want = rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf)
-        n = rm_kernel.geometry(B_, R_, Ip).n
+        chosen = rm_kernel.geometry(B_, R_, Ip, props.multi_processor_count)
         times = {}
-        for geom in ([rm_kernel.Geometry(True, 1, n, c) for c in (1, 2, 4)]
-                     + [rm_kernel.Geometry(False, 1, r, c)
-                        for r, c in ((16, 1), (32, 1), (32, 4))]):
+        for c in (1, 2, 4):
+            geom = chosen._replace(cluster=c)
             check(rm_kernel.rule_scores_int8(Qm, Am, s_f, cf, geom), want,
                   f"rm_int8 [{B_}, {R_}, {Ip}] at {geom}")
             times[geom.describe(B_, R_, Ip)] = _cuda_ms(
                 torch, lambda: rm_kernel.rule_scores_int8(Qm, Am, s_f, cf,
                                                           geom))
-        print(f"rm_int8 [{B_}, {R_}, {Ip}] at other geometries (exact): "
+        print(f"rm_int8 [{B_}, {R_}, {Ip}] at smaller clusters (exact): "
               + "; ".join(f"{k}: {v:.5f} ms" for k, v in times.items()))
         return times
 
@@ -1691,7 +1688,7 @@ def main() -> int:
                                 conf_wide).items():
         timing[k]["wide"] = dict(v, rules=WIDE_RULES)
     for b in (64, 8):
-        timing["rm_int8"][f"designs_bucket{b}"] = time_rm_int8_designs(
+        timing["rm_int8"][f"clusters_bucket{b}"] = time_rm_int8_clusters(
             baskets[:b], A8, sizes_f, conf)
 
     # ---- 6. the serving main path, three ways -------------------------

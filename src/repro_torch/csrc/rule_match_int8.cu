@@ -38,17 +38,16 @@
 // - Wide indexes: two warpgroups a CTA (128 rules, one 64 x N product
 //   each) share one query block, so each antecedent byte is read once and
 //   the 64 queries once per 128 rules; 16,384 rules are 128 CTAs, one wave.
-// - The launch geometry (rules or queries on M, warpgroups, N, cs) is the
-//   caller's: kernels/rule_match/kernel.py's geometry() picks it.  Queries
-//   on M with rule tiles of N = 16 or 32 is the alternative design that
-//   chip_smoke.py times beside the chosen one.
+// - The launch geometry (warpgroups, N, cs) is the caller's:
+//   kernels/rule_match/kernel.py's geometry() picks it.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.0055 ms at
 // the serving shape, 0.0048 at bucket 8, 0.0092 at 16,384 rules, against
 // 0.0155 and 0.0244 for torch._int_mm plus the compare and weight (the
 // kernel this one replaced: 0.0171-0.0175 and 0.0246).  Without the
-// cluster the serving shape takes 0.0082 ms; queries on M with 16- or
-// 32-rule tiles and no cluster 0.0069 / 0.0074.
+// cluster the serving shape takes 0.0082 ms.  The other design tried,
+// queries on M with 16- or 32-rule tiles and no cluster, took 0.0069 /
+// 0.0074 ms and was removed (PERF.md, PR 20).
 //
 // Left: the launch itself is most of what remains (a CTA reads 16 KB,
 // the bytes bound is 0.36 us).  A CUDA graph around serving's launches,
@@ -211,21 +210,19 @@ __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// A CTA's tile: kM rows of the M operand (64 a warpgroup) by N rows of the
-// N operand, over its cluster rank's share of the item slabs.
-template <int WG, int N, bool kRulesOnM>
+// A CTA's tile: 64 rules a warpgroup (wgmma's M) by N queries, over its
+// cluster rank's share of the item slabs.
+template <int WG, int N>
 struct Tile {
-  static constexpr int kM = 64 * WG;
-  static constexpr int kRules = kRulesOnM ? kM : N;     // rules a tile
-  static constexpr int kQueries = kRulesOnM ? N : kM;   // queries a tile
-  static constexpr uint32_t kMBytes = kM * kSlab;
-  static constexpr uint32_t kStageBytes = (kM + N) * kSlab;
-  static constexpr uint32_t kPartialBytes = kQueries * (kRules + kPad) * 4;
+  static constexpr int kRules = 64 * WG;
+  static constexpr uint32_t kRuleBytes = kRules * kSlab;
+  static constexpr uint32_t kStageBytes = (kRules + N) * kSlab;
+  static constexpr uint32_t kPartialBytes = N * (kRules + kPad) * 4;
 };
 
-template <int WG, int N, bool kRulesOnM>
+template <int WG, int N>
 size_t smem_bytes(int stages) {
-  using T = Tile<WG, N, kRulesOnM>;
+  using T = Tile<WG, N>;
   const size_t ring = static_cast<size_t>(stages) * T::kStageBytes;
   // 1 KB to align the base to the swizzle atom, the ring (whose space the
   // partials reuse once it is drained), a barrier a stage
@@ -233,7 +230,7 @@ size_t smem_bytes(int stages) {
          + 8 * stages;
 }
 
-template <int WG, int N, bool kRulesOnM>
+template <int WG, int N>
 __global__ void __launch_bounds__(128 * WG, 1)
 rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const __grid_constant__ CUtensorMap tm_q,
@@ -241,7 +238,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const float* __restrict__ conf,
                        float* __restrict__ out, int B, int R, int I,
                        int stages) {
-  using T = Tile<WG, N, kRulesOnM>;
+  using T = Tile<WG, N>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const size_t ring = static_cast<size_t>(stages) * T::kStageBytes;
@@ -253,11 +250,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int r0 = (blockIdx.x / cs) * T::kRules;
-  const int q0 = blockIdx.y * T::kQueries;
-  const CUtensorMap* tm_m = kRulesOnM ? &tm_a : &tm_q;
-  const CUtensorMap* tm_n = kRulesOnM ? &tm_q : &tm_a;
-  const int m0 = kRulesOnM ? r0 : q0;
-  const int n0 = kRulesOnM ? q0 : r0;
+  const int q0 = blockIdx.y * N;
 
   // this rank's slabs of the item axis
   const int slabs = (I + kSlab - 1) / kSlab;
@@ -270,8 +263,8 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const uint32_t bar = bars + 8 * s;
     const int col = (s_begin + i) * kSlab;
     mbar_expect_tx(bar, T::kStageBytes);
-    tma_load(dst, tm_m, bar, col, m0);
-    tma_load(dst + T::kMBytes, tm_n, bar, col, n0);
+    tma_load(dst, &tm_a, bar, col, r0);
+    tma_load(dst + T::kRuleBytes, &tm_q, bar, col, q0);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
@@ -281,7 +274,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
   if (threadIdx.x == 0)
     for (int i = 0; i < count && i < stages; ++i) issue(i);
 
-  // ---- products: each warpgroup its 64 rows of M -----------------------
+  // ---- products: each warpgroup its 64 rules --------------------------
   const int wg = threadIdx.x / 128;
   int acc[N / 2];
 #pragma unroll
@@ -290,7 +283,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int s = i % stages;
     mbar_wait(bars + 8 * s, (i / stages) & 1);
     const uint32_t a = base + s * T::kStageBytes + wg * 64 * kSlab;
-    const uint32_t b = base + s * T::kStageBytes + T::kMBytes;
+    const uint32_t b = base + s * T::kStageBytes + T::kRuleBytes;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -312,17 +305,15 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int g = lane / 4, t = lane % 4;
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) {
-      const int row = wg * 64 + 16 * warp + g + 8 * ((e % 4) / 2);
-      const int col = 8 * (e / 4) + 2 * t + e % 2;
-      const int q = kRulesOnM ? col : row;
-      const int r = kRulesOnM ? row : col;
+      const int r = wg * 64 + 16 * warp + g + 8 * ((e % 4) / 2);
+      const int q = 8 * (e / 4) + 2 * t + e % 2;
       partial[q * (T::kRules + kPad) + r] = acc[e];
     }
   }
   cluster.sync();                // every rank's partials are written
 
   // ---- epilogue: this rank's 1/cs of the tile, 4 rules a thread --------
-  constexpr int kTotal = T::kQueries * T::kRules;
+  constexpr int kTotal = N * T::kRules;
   const int share = kTotal / cs;
   const bool vec = (R % 4) == 0;
   for (int e = rank * share + 4 * threadIdx.x; e < (rank + 1) * share;
@@ -411,28 +402,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int WG, int N, bool kRulesOnM>
+template <int WG, int N>
 int launch(const Args& a) {
-  using T = Tile<WG, N, kRulesOnM>;
+  using T = Tile<WG, N>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_a, tm_q;
   if (!encode_map(encode, &tm_a, a.A, a.R, a.I, T::kRules) ||
-      !encode_map(encode, &tm_q, a.Q, a.B, a.I, T::kQueries))
+      !encode_map(encode, &tm_q, a.Q, a.B, a.I, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = (a.I + kSlab - 1) / kSlab;
   const int per_cta = (slabs + a.cs - 1) / a.cs;
   const int stages = per_cta < kMaxStages ? (per_cta > 0 ? per_cta : 1)
                                           : kMaxStages;
-  const size_t smem = smem_bytes<WG, N, kRulesOnM>(stages);
-  auto kernel = rule_match_int8_kernel<WG, N, kRulesOnM>;
+  const size_t smem = smem_bytes<WG, N>(stages);
+  auto kernel = rule_match_int8_kernel<WG, N>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.R + T::kRules - 1) / T::kRules * a.cs,
-                     (a.B + T::kQueries - 1) / T::kQueries);
+                     (a.B + N - 1) / N);
   cfg.blockDim = dim3(128 * WG);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -453,37 +444,31 @@ int launch(const Args& a) {
 
 // Q [B, I] and A [R, I] int8, sizes and conf [R] float32, out [B, R]
 // float32; all contiguous and 16-byte aligned, I % 16 == 0.  The geometry
-// (kernels/rule_match/kernel.py's geometry()): rules_on_m with wg in {1, 2}
-// and n in {8, 16, 32, 64}, or queries on M with wg 1 and n (rules a tile)
-// in {16, 32}; cs in {1, 2, 4, 8}.  Any other geometry is refused.
+// (kernels/rule_match/kernel.py's geometry()): wg in {1, 2} warpgroups (64
+// rules each) and n in {8, 16, 32, 64} queries a tile, cs in {1, 2, 4, 8}
+// CTAs splitting the item axis.  Any other geometry is refused.
 extern "C" int rule_match_int8_launch(const void* Q, const void* A,
                                       const void* sizes, const void* conf,
-                                      void* out, int B, int R, int I,
-                                      int rules_on_m, int wg, int n, int cs,
-                                      void* stream) {
+                                      void* out, int B, int R, int I, int wg,
+                                      int n, int cs, void* stream) {
   if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{Q, A, static_cast<const float*>(sizes),
                static_cast<const float*>(conf), static_cast<float*>(out),
                B, R, I, cs, static_cast<cudaStream_t>(stream)};
-  if (rules_on_m && wg == 1) {
+  if (wg == 1) {
     switch (n) {
-      case 8: return launch<1, 8, true>(a);
-      case 16: return launch<1, 16, true>(a);
-      case 32: return launch<1, 32, true>(a);
-      case 64: return launch<1, 64, true>(a);
+      case 8: return launch<1, 8>(a);
+      case 16: return launch<1, 16>(a);
+      case 32: return launch<1, 32>(a);
+      case 64: return launch<1, 64>(a);
     }
-  } else if (rules_on_m && wg == 2) {
+  } else if (wg == 2) {
     switch (n) {
-      case 8: return launch<2, 8, true>(a);
-      case 16: return launch<2, 16, true>(a);
-      case 32: return launch<2, 32, true>(a);
-      case 64: return launch<2, 64, true>(a);
-    }
-  } else if (!rules_on_m && wg == 1) {
-    switch (n) {
-      case 16: return launch<1, 16, false>(a);
-      case 32: return launch<1, 32, false>(a);
+      case 8: return launch<2, 8>(a);
+      case 16: return launch<2, 16>(a);
+      case 32: return launch<2, 32>(a);
+      case 64: return launch<2, 64>(a);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -44,21 +44,18 @@ H100_SMS = 132
 
 
 class Geometry(NamedTuple):
-    """A launch of the kernel: rules (or queries) on wgmma's M side,
-    warpgroups a CTA (64 rows of M each), N (rows of the other operand a
-    tile) and the cluster size splitting a tile's item axis."""
-    rules_on_m: bool
+    """A launch of the kernel: warpgroups a CTA (64 rules each, wgmma's M
+    side), N (queries a tile) and the cluster size splitting a tile's
+    item axis."""
     warpgroups: int
     n: int
     cluster: int
 
     def describe(self, B: int, R: int, I: int) -> str:
-        rules = 64 * self.warpgroups if self.rules_on_m else self.n
-        queries = self.n if self.rules_on_m else 64
-        tiles = -(-R // rules) * -(-B // queries)
-        return (f"{'rules' if self.rules_on_m else 'queries'} on M, tiles "
-                f"of {rules} rules x {queries} queries, {tiles} tiles x "
-                f"cluster {self.cluster} = {tiles * self.cluster} CTAs of "
+        rules = 64 * self.warpgroups
+        tiles = -(-R // rules) * -(-B // self.n)
+        return (f"tiles of {rules} rules x {self.n} queries, {tiles} tiles "
+                f"x cluster {self.cluster} = {tiles * self.cluster} CTAs of "
                 f"{128 * self.warpgroups} threads")
 
 
@@ -80,7 +77,7 @@ def geometry(B: int, R: int, I: int, sms: int = H100_SMS) -> Geometry:
     while (2 * cluster <= CLUSTERS[-1] and 2 * cluster <= slabs
            and 2 * cluster * tiles <= sms):
         cluster *= 2
-    return Geometry(True, warpgroups, n, cluster)
+    return Geometry(warpgroups, n, cluster)
 
 
 def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
@@ -96,7 +93,7 @@ def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
 def _launcher():
     lib = loader.load("rule_match_int8")
     fn = lib.rule_match_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -160,9 +157,8 @@ def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Q.data_ptr(), A.data_ptr(), sizes.data_ptr(),
-                 conf.data_ptr(), out.data_ptr(), B, R, I,
-                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
-                 stream)
+                 conf.data_ptr(), out.data_ptr(), B, R, I, geom.warpgroups,
+                 geom.n, geom.cluster, stream)
     loader.check(lib, err, "rule_match_int8 launch")
     rule_scores_int8.launches += 1
     return out

@@ -245,14 +245,14 @@ def test_loader_knows_the_rule_match_sources():
 # tile's items over a cluster of 8; the wide index takes 128-rule tiles
 # in one wave; small and ragged shapes take what their slabs allow
 GEOMETRIES = {
-    (64, 896, 1024): (kernel.Geometry(True, 1, 64, 8), 112),
-    (8, 896, 1024): (kernel.Geometry(True, 1, 8, 8), 112),
-    (64, 16384, 1024): (kernel.Geometry(True, 2, 64, 1), 128),
-    (1, 1, 64): (kernel.Geometry(True, 1, 8, 1), 1),
-    (5, 127, 192): (kernel.Geometry(True, 1, 8, 2), 4),
-    (9, 129, 64): (kernel.Geometry(True, 1, 16, 1), 3),
-    (65, 333, 1024): (kernel.Geometry(True, 1, 64, 8), 96),
-    (32, 4096, 4096): (kernel.Geometry(True, 1, 32, 2), 128),
+    (64, 896, 1024): (kernel.Geometry(1, 64, 8), 112),
+    (8, 896, 1024): (kernel.Geometry(1, 8, 8), 112),
+    (64, 16384, 1024): (kernel.Geometry(2, 64, 1), 128),
+    (1, 1, 64): (kernel.Geometry(1, 8, 1), 1),
+    (5, 127, 192): (kernel.Geometry(1, 8, 2), 4),
+    (9, 129, 64): (kernel.Geometry(1, 16, 1), 3),
+    (65, 333, 1024): (kernel.Geometry(1, 64, 8), 96),
+    (32, 4096, 4096): (kernel.Geometry(1, 32, 2), 128),
 }
 
 
@@ -273,7 +273,7 @@ def test_int8_geometry_fills_one_wave_without_empty_slabs(sms):
         for R in (1, 64, 127, 896, 5000, 16384):
             for I in (64, 128, 192, 1024):
                 g = kernel.geometry(B, R, I, sms)
-                assert g.rules_on_m and g.n in kernel.QUERY_TILES
+                assert g.n in kernel.QUERY_TILES
                 assert g.n >= min(B, 64)
                 assert g.cluster in kernel.CLUSTERS
                 assert g.cluster <= -(-I // kernel.SLAB)
@@ -289,6 +289,5 @@ def test_int8_cpu_wrapper_ignores_the_geometry():
         torch.int8)
     s, c = torch.from_numpy(sp), torch.from_numpy(cp)
     want = rule_scores_ref(Q, A, s, c)
-    for geom in (kernel.Geometry(True, 2, 8, 4),
-                 kernel.Geometry(False, 1, 32, 1)):
+    for geom in (kernel.Geometry(2, 8, 4), kernel.Geometry(1, 64, 1)):
         assert torch.equal(kernel.rule_scores_int8(Q, A, s, c, geom), want)

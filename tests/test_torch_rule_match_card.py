@@ -79,14 +79,12 @@ def test_int8_kernel_padding_rows_never_match(card):
 
 # every geometry the kernel accepts, at a shape that splits the item axis
 # and leaves ragged tiles on both operands
-GEOMETRIES = ([kernel.Geometry(True, wg, n, c) for wg in (1, 2)
-               for n in kernel.QUERY_TILES for c in kernel.CLUSTERS]
-              + [kernel.Geometry(False, 1, n, c) for n in (16, 32)
-                 for c in kernel.CLUSTERS])
+GEOMETRIES = [kernel.Geometry(wg, n, c) for wg in (1, 2)
+              for n in kernel.QUERY_TILES for c in kernel.CLUSTERS]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "-".join(
-    map(str, (int(g.rules_on_m), g.warpgroups, g.n, g.cluster))))
+@pytest.mark.parametrize("geom", GEOMETRIES,
+                         ids=lambda g: "wg{}-n{}-cluster{}".format(*g))
 def test_int8_kernel_equals_plain_version_at_every_geometry(card, geom):
     _held(*_inputs(37, 333, 1024, 5, card), geom=geom)
