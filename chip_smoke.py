@@ -52,10 +52,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    shapes, and at a wider index of 16,384 random rules; time both at the
    64- and 8-basket shapes and the wide one, beside the plain versions
    and, for the int8 kernel, ``torch._int_mm`` plus the compare-and-weight
-   (above 16 baskets: ``_int_mm`` takes no fewer rows), printing the
-   int8 kernel's launch geometry; then hold the int8 kernel exactly
-   against its plain version with its item axis over clusters of 1, 2
-   and 4 CTAs in place of the chosen 8, and time each at both buckets;
+   (at 16 baskets or fewer with the rules as ``_int_mm``'s first operand,
+   which must have more than 16 rows), printing the int8 kernel's launch
+   geometry;
 6. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
    times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
    scores — and require equal recommendations and reports, launches of
@@ -1611,19 +1610,21 @@ def main() -> int:
           "(serving shapes + 3 ragged shapes + a wide index)")
 
     def int_mm_scores(Qm, Am, s_i, cf):
-        dots = torch._int_mm(Qm, Am.t())
+        # torch._int_mm's first operand needs more than 16 rows: a small
+        # batch goes second, and the [R, B] dots are read transposed
+        if Qm.shape[0] > 16:
+            dots = torch._int_mm(Qm, Am.t())
+        else:
+            dots = torch._int_mm(Am, Qm.t()).t()
         return (dots == s_i[None, :]).to(torch.float32) * cf[None, :]
 
     def time_rule_match(Qm, Am, s_f, cf):
         Qmw, Amw, s_i = fused.pack_words(Qm), fused.pack_words(Am), \
             s_f.to(torch.int32)
         B_, R_ = Qm.shape[0], Am.shape[0]
-        # torch._int_mm takes more than 16 rows: no one call below that
-        int_mm = B_ > 16
-        if int_mm:
-            check(int_mm_scores(Qm, Am, s_i, cf),
-                  rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf),
-                  "torch._int_mm yardstick")
+        check(int_mm_scores(Qm, Am, s_i, cf),
+              rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf),
+              "torch._int_mm yardstick")
         W_ = Ip // 32
         bound = {
             "rm_packed": {"operations": B_ * R_ * W_ / popc_per_s * 1e3,
@@ -1649,7 +1650,7 @@ def main() -> int:
                                   .rule_scores_int8_plain(Qm, Am, s_f, cf),
                                   reps=3),
                 library_ms=_cuda_ms(torch, lambda: int_mm_scores(
-                    Qm, Am, s_i, cf)) if int_mm else None),
+                    Qm, Am, s_i, cf))),
         }
         geom = rm_kernel.geometry(B_, R_, Ip, props.multi_processor_count)
         out["rm_int8"]["geometry"] = geom.describe(B_, R_, Ip)
@@ -1662,34 +1663,12 @@ def main() -> int:
                   + (f"; launch: {v['geometry']}" if "geometry" in v else ""))
         return out
 
-    def time_rm_int8_clusters(Qm, Am, s_f, cf):
-        """rule_match_int8 with its tiles' item axis split over clusters of
-        1, 2 and 4 CTAs in place of the chosen one, each held exactly
-        against the plain version."""
-        B_, R_ = Qm.shape[0], Am.shape[0]
-        want = rm_kernel.rule_scores_int8_plain(Qm, Am, s_f, cf)
-        chosen = rm_kernel.geometry(B_, R_, Ip, props.multi_processor_count)
-        times = {}
-        for c in (1, 2, 4):
-            geom = chosen._replace(cluster=c)
-            check(rm_kernel.rule_scores_int8(Qm, Am, s_f, cf, geom), want,
-                  f"rm_int8 [{B_}, {R_}, {Ip}] at {geom}")
-            times[geom.describe(B_, R_, Ip)] = _cuda_ms(
-                torch, lambda: rm_kernel.rule_scores_int8(Qm, Am, s_f, cf,
-                                                          geom))
-        print(f"rm_int8 [{B_}, {R_}, {Ip}] at smaller clusters (exact): "
-              + "; ".join(f"{k}: {v:.5f} ms" for k, v in times.items()))
-        return times
-
     timing.update(time_rule_match(baskets, A8, sizes_f, conf))
     for k, v in time_rule_match(baskets[:8], A8, sizes_f, conf).items():
         timing[k]["bucket8"] = v
     for k, v in time_rule_match(baskets, A_wide, sizes_wide,
                                 conf_wide).items():
         timing[k]["wide"] = dict(v, rules=WIDE_RULES)
-    for b in (64, 8):
-        timing["rm_int8"][f"clusters_bucket{b}"] = time_rm_int8_clusters(
-            baskets[:b], A8, sizes_f, conf)
 
     # ---- 6. the serving main path, three ways -------------------------
     queries = [Query.of(np.flatnonzero(row).tolist())
@@ -1709,6 +1688,7 @@ def main() -> int:
         print(f"serve {kw or 'default (packed)'}: backend {report.backend}, "
               f"{report.n_queries} queries in {report.n_batches} batches, "
               f"cache {report.cache_hits} hit / {report.cache_misses} miss, "
+              f"batches by bucket {report.bucket_counts}, "
               f"wall {report.wall_time_s:.4f} s = {report.wall_qps:.0f} "
               f"QPS, of which scoring calls {score_s:.4f} s, gc pauses "
               f"{gc_pause['s']:.4f} s; launches {on}")

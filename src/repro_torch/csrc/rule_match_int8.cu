@@ -13,14 +13,22 @@
 // sets the time is latency: the launch, one trip to memory, the epilogue.
 //
 // Design.
-// - Rules are the M operand of wgmma m64nNk32 s8 x s8 -> s32 and the
-//   queries its N (N = 8, 16, 32 or 64: the batch rounded up), so a
-//   bucket of 8 queries fills the instruction with no rows of zeros.  Both
-//   operands are rows contiguous in the item axis, the K-major layout
-//   wgmma takes for s8, read from shared memory by descriptor; the sum is
-//   exact integer arithmetic.  wgmma, not mma.sync, because it needs no
-//   fragment loads: a warpgroup's 64 x N tile over 128 items is four
-//   instructions.
+// - wgmma m64nNk32 s8 x s8 -> s32 reads both operands from shared memory
+//   by descriptor as rows contiguous in the item axis (K-major), which is
+//   how the antecedents and the queries are stored, so either can be the
+//   M operand (64 rows a warpgroup) and the other the N; the sum is exact
+//   integer arithmetic.  wgmma, not mma.sync, because it needs no fragment
+//   loads: a warpgroup's 64 x N tile over 128 items is four instructions.
+// - Two layouts, each the faster at one of serving's two buckets
+//   (tools/rule_match_int8_designs.py, medians of 9 rounds, NVIDIA H100
+//   80GB HBM3, 700.00 W):
+//   * queries on M and 32-rule tiles as N, when the batch is over 32 (a
+//     bucket of 64 fills M) and those tiles fit in one wave: 0.00508 ms
+//     at [64 x 896 x 1,024], against 0.00526 with the rules on M;
+//   * otherwise rules on M and the batch, rounded up to 8, 16, 32 or 64,
+//     as N, so that a bucket of 8 fills the instruction with no rows of
+//     zeros: 0.00457 ms at [8 x 896 x 1,024], against 0.00517 with the
+//     queries on M.
 // - Loads: one thread issues TMA loads of 128-item slabs (128-byte rows,
 //   128-byte swizzle) of both operands onto one mbarrier a slab, all of a
 //   CTA's slabs at once when they fit in its ring of 8 stages (I <= 1,024
@@ -32,24 +40,25 @@
 //   written to its own shared memory; after a cluster barrier each CTA
 //   adds the cluster's partials for its 1/cs share of the tile through
 //   distributed shared memory, compares, weights and stores it.  Exact,
-//   and no atomics.  The queries are not multicast: each CTA of a cluster
-//   reads another slice of them.  At the serving shape 14 tiles x 8 = 112
-//   CTAs each read 16 KB (8 KB at bucket 8).
-// - Wide indexes: two warpgroups a CTA (128 rules, one 64 x N product
-//   each) share one query block, so each antecedent byte is read once and
-//   the 64 queries once per 128 rules; 16,384 rules are 128 CTAs, one wave.
-// - The launch geometry (warpgroups, N, cs) is the caller's:
+//   and no atomics.  The shared operand is not multicast: each CTA of a
+//   cluster reads another slice of the items.  At the serving shape 28
+//   tiles x 4 = 112 CTAs each read 24 KB; at bucket 8, 14 x 8 = 112 CTAs
+//   read 9 KB each.
+// - Wide indexes: rules on M, two warpgroups a CTA (128 rules, one 64 x N
+//   product each) sharing one query block, so each antecedent byte is read
+//   once and the 64 queries once per 128 rules; 16,384 rules are 128 CTAs,
+//   one wave.
+// - The launch geometry (layout, warpgroups, N, cs) is the caller's:
 //   kernels/rule_match/kernel.py's geometry() picks it.
 //
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.0055 ms at
-// the serving shape, 0.0048 at bucket 8, 0.0092 at 16,384 rules, against
-// 0.0155 and 0.0244 for torch._int_mm plus the compare and weight (the
-// kernel this one replaced: 0.0171-0.0175 and 0.0246).  Without the
-// cluster the serving shape takes 0.0082 ms.  The other design tried,
-// queries on M with 16- or 32-rule tiles and no cluster, took 0.0069 /
-// 0.0074 ms and was removed (PERF.md, PR 20).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.0052 ms at
+// the serving shape, 0.0047 at bucket 8 and 0.0092 at 16,384 rules,
+// against 0.0155, 0.0214 and 0.0240 for torch._int_mm plus the compare
+// and weight (the kernel this one replaced: 0.0171-0.0175 at the serving
+// shape, 0.0246 at 16,384 rules).  Without a cluster the serving shape
+// takes 0.0073 ms with the queries on M, 0.0080 with the rules on M.
 //
-// Left: the launch itself is most of what remains (a CTA reads 16 KB,
+// Left: the launch itself is most of what remains (a CTA reads 9-24 KB,
 // the bytes bound is 0.36 us).  A CUDA graph around serving's launches,
 // or fusing the top-k into the epilogue so the [B, R] scores never reach
 // device memory, are what could still move it.
@@ -210,19 +219,21 @@ __device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// A CTA's tile: 64 rules a warpgroup (wgmma's M) by N queries, over its
-// cluster rank's share of the item slabs.
-template <int WG, int N>
+// A CTA's tile: kM rows of the M operand (64 a warpgroup) by N rows of the
+// N operand, over its cluster rank's share of the item slabs.
+template <int WG, int N, bool kRulesOnM>
 struct Tile {
-  static constexpr int kRules = 64 * WG;
-  static constexpr uint32_t kRuleBytes = kRules * kSlab;
-  static constexpr uint32_t kStageBytes = (kRules + N) * kSlab;
-  static constexpr uint32_t kPartialBytes = N * (kRules + kPad) * 4;
+  static constexpr int kM = 64 * WG;
+  static constexpr int kRules = kRulesOnM ? kM : N;     // rules a tile
+  static constexpr int kQueries = kRulesOnM ? N : kM;   // queries a tile
+  static constexpr uint32_t kMBytes = kM * kSlab;
+  static constexpr uint32_t kStageBytes = (kM + N) * kSlab;
+  static constexpr uint32_t kPartialBytes = kQueries * (kRules + kPad) * 4;
 };
 
-template <int WG, int N>
+template <int WG, int N, bool kRulesOnM>
 size_t smem_bytes(int stages) {
-  using T = Tile<WG, N>;
+  using T = Tile<WG, N, kRulesOnM>;
   const size_t ring = static_cast<size_t>(stages) * T::kStageBytes;
   // 1 KB to align the base to the swizzle atom, the ring (whose space the
   // partials reuse once it is drained), a barrier a stage
@@ -230,7 +241,7 @@ size_t smem_bytes(int stages) {
          + 8 * stages;
 }
 
-template <int WG, int N>
+template <int WG, int N, bool kRulesOnM>
 __global__ void __launch_bounds__(128 * WG, 1)
 rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const __grid_constant__ CUtensorMap tm_q,
@@ -238,7 +249,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
                        const float* __restrict__ conf,
                        float* __restrict__ out, int B, int R, int I,
                        int stages) {
-  using T = Tile<WG, N>;
+  using T = Tile<WG, N, kRulesOnM>;
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const size_t ring = static_cast<size_t>(stages) * T::kStageBytes;
@@ -250,7 +261,11 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int r0 = (blockIdx.x / cs) * T::kRules;
-  const int q0 = blockIdx.y * N;
+  const int q0 = blockIdx.y * T::kQueries;
+  const CUtensorMap* tm_m = kRulesOnM ? &tm_a : &tm_q;
+  const CUtensorMap* tm_n = kRulesOnM ? &tm_q : &tm_a;
+  const int m0 = kRulesOnM ? r0 : q0;
+  const int n0 = kRulesOnM ? q0 : r0;
 
   // this rank's slabs of the item axis
   const int slabs = (I + kSlab - 1) / kSlab;
@@ -263,8 +278,8 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const uint32_t bar = bars + 8 * s;
     const int col = (s_begin + i) * kSlab;
     mbar_expect_tx(bar, T::kStageBytes);
-    tma_load(dst, &tm_a, bar, col, r0);
-    tma_load(dst + T::kRuleBytes, &tm_q, bar, col, q0);
+    tma_load(dst, tm_m, bar, col, m0);
+    tma_load(dst + T::kMBytes, tm_n, bar, col, n0);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
@@ -274,7 +289,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
   if (threadIdx.x == 0)
     for (int i = 0; i < count && i < stages; ++i) issue(i);
 
-  // ---- products: each warpgroup its 64 rules --------------------------
+  // ---- products: each warpgroup its 64 rows of M -----------------------
   const int wg = threadIdx.x / 128;
   int acc[N / 2];
 #pragma unroll
@@ -283,7 +298,7 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int s = i % stages;
     mbar_wait(bars + 8 * s, (i / stages) & 1);
     const uint32_t a = base + s * T::kStageBytes + wg * 64 * kSlab;
-    const uint32_t b = base + s * T::kStageBytes + T::kRuleBytes;
+    const uint32_t b = base + s * T::kStageBytes + T::kMBytes;
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
@@ -305,15 +320,17 @@ rule_match_int8_kernel(const __grid_constant__ CUtensorMap tm_a,
     const int g = lane / 4, t = lane % 4;
 #pragma unroll
     for (int e = 0; e < N / 2; ++e) {
-      const int r = wg * 64 + 16 * warp + g + 8 * ((e % 4) / 2);
-      const int q = 8 * (e / 4) + 2 * t + e % 2;
+      const int row = wg * 64 + 16 * warp + g + 8 * ((e % 4) / 2);
+      const int col = 8 * (e / 4) + 2 * t + e % 2;
+      const int q = kRulesOnM ? col : row;
+      const int r = kRulesOnM ? row : col;
       partial[q * (T::kRules + kPad) + r] = acc[e];
     }
   }
   cluster.sync();                // every rank's partials are written
 
   // ---- epilogue: this rank's 1/cs of the tile, 4 rules a thread --------
-  constexpr int kTotal = N * T::kRules;
+  constexpr int kTotal = T::kQueries * T::kRules;
   const int share = kTotal / cs;
   const bool vec = (R % 4) == 0;
   for (int e = rank * share + 4 * threadIdx.x; e < (rank + 1) * share;
@@ -402,28 +419,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int WG, int N>
+template <int WG, int N, bool kRulesOnM>
 int launch(const Args& a) {
-  using T = Tile<WG, N>;
+  using T = Tile<WG, N, kRulesOnM>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_a, tm_q;
   if (!encode_map(encode, &tm_a, a.A, a.R, a.I, T::kRules) ||
-      !encode_map(encode, &tm_q, a.Q, a.B, a.I, N))
+      !encode_map(encode, &tm_q, a.Q, a.B, a.I, T::kQueries))
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = (a.I + kSlab - 1) / kSlab;
   const int per_cta = (slabs + a.cs - 1) / a.cs;
   const int stages = per_cta < kMaxStages ? (per_cta > 0 ? per_cta : 1)
                                           : kMaxStages;
-  const size_t smem = smem_bytes<WG, N>(stages);
-  auto kernel = rule_match_int8_kernel<WG, N>;
+  const size_t smem = smem_bytes<WG, N, kRulesOnM>(stages);
+  auto kernel = rule_match_int8_kernel<WG, N, kRulesOnM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.R + T::kRules - 1) / T::kRules * a.cs,
-                     (a.B + N - 1) / N);
+                     (a.B + T::kQueries - 1) / T::kQueries);
   cfg.blockDim = dim3(128 * WG);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = a.stream;
@@ -444,32 +461,36 @@ int launch(const Args& a) {
 
 // Q [B, I] and A [R, I] int8, sizes and conf [R] float32, out [B, R]
 // float32; all contiguous and 16-byte aligned, I % 16 == 0.  The geometry
-// (kernels/rule_match/kernel.py's geometry()): wg in {1, 2} warpgroups (64
-// rules each) and n in {8, 16, 32, 64} queries a tile, cs in {1, 2, 4, 8}
-// CTAs splitting the item axis.  Any other geometry is refused.
+// (kernels/rule_match/kernel.py's geometry()): rules_on_m with wg in {1, 2}
+// warpgroups (64 rules each) and n in {8, 16, 32, 64} queries a tile, or
+// queries on M with wg 1 (64 queries) and n = 32 rules a tile; cs in {1,
+// 2, 4, 8} CTAs splitting the item axis.  Any other geometry is refused.
 extern "C" int rule_match_int8_launch(const void* Q, const void* A,
                                       const void* sizes, const void* conf,
-                                      void* out, int B, int R, int I, int wg,
-                                      int n, int cs, void* stream) {
+                                      void* out, int B, int R, int I,
+                                      int rules_on_m, int wg, int n, int cs,
+                                      void* stream) {
   if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{Q, A, static_cast<const float*>(sizes),
                static_cast<const float*>(conf), static_cast<float*>(out),
                B, R, I, cs, static_cast<cudaStream_t>(stream)};
-  if (wg == 1) {
+  if (rules_on_m && wg == 1) {
     switch (n) {
-      case 8: return launch<1, 8>(a);
-      case 16: return launch<1, 16>(a);
-      case 32: return launch<1, 32>(a);
-      case 64: return launch<1, 64>(a);
+      case 8: return launch<1, 8, true>(a);
+      case 16: return launch<1, 16, true>(a);
+      case 32: return launch<1, 32, true>(a);
+      case 64: return launch<1, 64, true>(a);
     }
-  } else if (wg == 2) {
+  } else if (rules_on_m && wg == 2) {
     switch (n) {
-      case 8: return launch<2, 8>(a);
-      case 16: return launch<2, 16>(a);
-      case 32: return launch<2, 32>(a);
-      case 64: return launch<2, 64>(a);
+      case 8: return launch<2, 8, true>(a);
+      case 16: return launch<2, 16, true>(a);
+      case 32: return launch<2, 32, true>(a);
+      case 64: return launch<2, 64, true>(a);
     }
+  } else if (!rules_on_m && wg == 1 && n == 32) {
+    return launch<1, 32, false>(a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

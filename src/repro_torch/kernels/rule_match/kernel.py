@@ -10,15 +10,17 @@ At the serving shapes (a batch of 8 or 64 queries against the whole
 index) the bytes bound it on H100: one read of the [R, I] antecedents and
 one write of the [B, R] float scores outweigh 2·B·R·I int8 operations at
 1,979 dense TOP/s.  At the serving shape those bytes take 0.36 µs, so the
-kernel is built against latency: the rules are the M operand of ``wgmma``
-m64nNk32 s8 (the batch, rounded up to 8, 16, 32 or 64, is N), one thread
+kernel is built against latency: ``wgmma`` m64nNk32 s8 products, with a
+bucket of 64 queries as the M operand and 32-rule tiles as N, or else the
+rules as M and the batch (rounded up to 8, 16, 32 or 64) as N; one thread
 loads every 128-item slab of both operands at once by TMA onto one
 ``mbarrier`` a slab, and a tile's item axis is split over a cluster of up
 to 8 CTAs whose int32 partials meet in distributed shared memory before
 the ``== sizes`` compare and the ``conf`` weight.  :func:`geometry` picks
-the launch geometry; ``csrc/rule_match_int8.cu`` has the design.  It takes
-0.0055 ms at the serving shape [64 × 896 × 1,024], 0.0048 at bucket 8 and
-0.0092 at [64 × 16,384 × 1,024], against 0.0155 and 0.0244 for
+the launch geometry; ``csrc/rule_match_int8.cu`` has the design and the
+times that chose between the two layouts.  It takes 0.0052 ms at the
+serving shape [64 × 896 × 1,024], 0.0047 at bucket 8 and 0.0092 at
+[64 × 16,384 × 1,024], against 0.0155, 0.0214 and 0.0240 for
 ``torch._int_mm`` plus the compare and weight (chip_smoke, NVIDIA H100
 80GB HBM3, 700.00 W).
 """
@@ -38,46 +40,60 @@ from repro_torch.kernels.support_count.ref import MAX_EXACT_ITEMS
 # rows of a multiple of 16 bytes and zero-fill a ragged last slab)
 ITEM_MULTIPLE = 64
 SLAB = 128            # items a TMA box and a swizzled shared-memory row hold
-QUERY_TILES = (8, 16, 32, 64)   # wgmma N: queries a tile
+QUERY_TILES = (8, 16, 32, 64)   # wgmma N with the rules on M: queries a tile
+RULE_TILE = 32                  # wgmma N with the queries on M: rules a tile
 CLUSTERS = (1, 2, 4, 8)         # CTAs splitting a tile's item axis
 H100_SMS = 132
 
 
 class Geometry(NamedTuple):
-    """A launch of the kernel: warpgroups a CTA (64 rules each, wgmma's M
-    side), N (queries a tile) and the cluster size splitting a tile's
-    item axis."""
+    """A launch of the kernel: warpgroups a CTA (64 rows of wgmma's M
+    operand each), N (rows of the other operand a tile), the cluster size
+    splitting a tile's item axis, and which operand is M: the rules (N
+    queries a tile) or the queries (N rules a tile)."""
     warpgroups: int
     n: int
     cluster: int
+    rules_on_m: bool = True
 
     def describe(self, B: int, R: int, I: int) -> str:
-        rules = 64 * self.warpgroups
-        tiles = -(-R // rules) * -(-B // self.n)
-        return (f"tiles of {rules} rules x {self.n} queries, {tiles} tiles "
-                f"x cluster {self.cluster} = {tiles * self.cluster} CTAs of "
+        m = 64 * self.warpgroups
+        rules, queries = (m, self.n) if self.rules_on_m else (self.n, m)
+        tiles = -(-R // rules) * -(-B // queries)
+        return (f"{'rules' if self.rules_on_m else 'queries'} on M, tiles "
+                f"of {rules} rules x {queries} queries, {tiles} tiles x "
+                f"cluster {self.cluster} = {tiles * self.cluster} CTAs of "
                 f"{128 * self.warpgroups} threads")
 
 
 def geometry(B: int, R: int, I: int, sms: int = H100_SMS) -> Geometry:
     """The launch geometry for [B, I] queries against [R, I] rules.
 
-    N is the batch rounded up to 8, 16, 32 or 64 (batches above 64 take
-    several query tiles).  A CTA takes 128 rules (two warpgroups) once 64-
-    rule tiles would overfill one wave of ``sms`` CTAs, so a wide index is
-    read once in one wave.  The cluster then doubles, up to 8 and up to
-    one CTA a 128-item slab, while the CTAs still fit in one wave.
+    A batch of more than 32 queries is wgmma's M operand, 64 queries a
+    tile against 32-rule tiles, when those tiles fit in one wave of
+    ``sms`` CTAs (the faster layout at a bucket of 64 against a small
+    index).  Otherwise the rules are M and N is the batch rounded up to 8,
+    16, 32 or 64 (batches above 64 take several query tiles); a CTA takes
+    128 rules (two warpgroups) once 64-rule tiles would overfill one wave,
+    so a wide index is read once in one wave.  The cluster then doubles,
+    up to 8 and up to one CTA a 128-item slab, while the CTAs still fit in
+    one wave.
     """
-    n = next(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
-    q_tiles = -(-B // n)
-    warpgroups = 2 if -(-R // 64) * q_tiles > sms else 1
-    tiles = -(-R // (64 * warpgroups)) * q_tiles
+    if B > 32 and -(-R // RULE_TILE) * -(-B // 64) <= sms:
+        geom, tiles = Geometry(1, RULE_TILE, 1, False), \
+            -(-R // RULE_TILE) * -(-B // 64)
+    else:
+        n = next(t for t in QUERY_TILES if t >= min(B, QUERY_TILES[-1]))
+        q_tiles = -(-B // n)
+        warpgroups = 2 if -(-R // 64) * q_tiles > sms else 1
+        geom = Geometry(warpgroups, n, 1)
+        tiles = -(-R // (64 * warpgroups)) * q_tiles
     slabs = -(-I // SLAB)
     cluster = 1
     while (2 * cluster <= CLUSTERS[-1] and 2 * cluster <= slabs
            and 2 * cluster * tiles <= sms):
         cluster *= 2
-    return Geometry(warpgroups, n, cluster)
+    return geom._replace(cluster=cluster)
 
 
 def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
@@ -93,7 +109,7 @@ def rule_scores_int8_plain(Q: torch.Tensor, A: torch.Tensor,
 def _launcher():
     lib = loader.load("rule_match_int8")
     fn = lib.rule_match_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -122,14 +138,13 @@ def _sms(index: int) -> int:
 
 
 def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
-                     conf: torch.Tensor,
-                     geom: Geometry | None = None) -> torch.Tensor:
+                     conf: torch.Tensor) -> torch.Tensor:
     """Int8-dot rule scores, ``[B, R]`` float32.
 
     Q: [B, I] and A: [R, I] int8 0/1, sizes: [R] float32 (-1 on padded
     rows), conf: [R] float32.  A CUDA tensor goes through the kernel
-    (``I % 64 == 0``, contiguous, 16-byte aligned) at ``geom``, by default
-    :func:`geometry`'s; a CPU tensor through the plain version.
+    (``I % 64 == 0``, contiguous, 16-byte aligned) at :func:`geometry`'s
+    launch geometry; a CPU tensor through the plain version.
     """
     _check_inputs(Q, A, sizes, conf)
     if Q.device.type == "cpu":
@@ -151,14 +166,14 @@ def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
     out = torch.empty((B, R), dtype=torch.float32, device=Q.device)
     if B == 0 or R == 0:
         return out
-    if geom is None:
-        geom = geometry(B, R, I, _sms(Q.device.index or 0))
+    geom = geometry(B, R, I, _sms(Q.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Q.data_ptr(), A.data_ptr(), sizes.data_ptr(),
-                 conf.data_ptr(), out.data_ptr(), B, R, I, geom.warpgroups,
-                 geom.n, geom.cluster, stream)
+                 conf.data_ptr(), out.data_ptr(), B, R, I,
+                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
+                 stream)
     loader.check(lib, err, "rule_match_int8 launch")
     rule_scores_int8.launches += 1
     return out

@@ -13,7 +13,7 @@ of 3 stages; the row groups' partial sums of y meet in shared memory once
 a stage, and the u term, ``v_t[m]·Σ_i r_t[i]·u[i]·k_t[i]``, is summed
 once a step for the block.  On H100 the function is bound by bytes
 (5·n·4 a step and head, against 5·n² + 5·n float32 operations): 0.203 ms
-at rwkv6-7b's prefill shape, where the kernel takes 0.398 ms
+at rwkv6-7b's prefill shape, where the kernel takes 0.396–0.398 ms
 (chip_smoke, NVIDIA H100 80GB HBM3, 700.00 W).  See the source for the
 design.
 """

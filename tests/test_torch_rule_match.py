@@ -241,17 +241,22 @@ def test_loader_knows_the_rule_match_sources():
 
 
 # (B, R, I) -> the launch geometry the int8 kernel takes on 132 SMs, and
-# its CTA count: the serving shape at buckets 64 and 8 splits each 64-rule
-# tile's items over a cluster of 8; the wide index takes 128-rule tiles
-# in one wave; small and ragged shapes take what their slabs allow
+# its CTA count: the serving shape at bucket 64 puts the queries on M
+# against 32-rule tiles, split over clusters of 4; bucket 8 puts the rules
+# on M and splits each 64-rule tile's items over a cluster of 8; the wide
+# index takes 128-rule tiles in one wave; a 64-query batch goes back to
+# the rules on M once its 32-rule tiles overfill a wave; small and ragged
+# shapes take what their slabs allow
 GEOMETRIES = {
-    (64, 896, 1024): (kernel.Geometry(1, 64, 8), 112),
+    (64, 896, 1024): (kernel.Geometry(1, 32, 4, False), 112),
     (8, 896, 1024): (kernel.Geometry(1, 8, 8), 112),
     (64, 16384, 1024): (kernel.Geometry(2, 64, 1), 128),
+    (64, 4224, 1024): (kernel.Geometry(1, 32, 1, False), 132),
+    (64, 4225, 1024): (kernel.Geometry(1, 64, 1), 67),
     (1, 1, 64): (kernel.Geometry(1, 8, 1), 1),
     (5, 127, 192): (kernel.Geometry(1, 8, 2), 4),
     (9, 129, 64): (kernel.Geometry(1, 16, 1), 3),
-    (65, 333, 1024): (kernel.Geometry(1, 64, 8), 96),
+    (65, 333, 1024): (kernel.Geometry(1, 32, 4, False), 88),
     (32, 4096, 4096): (kernel.Geometry(1, 32, 2), 128),
 }
 
@@ -266,28 +271,26 @@ def test_int8_launch_geometry(shape):
 
 @pytest.mark.parametrize("sms", [8, 132])
 def test_int8_geometry_fills_one_wave_without_empty_slabs(sms):
-    """Over ragged shapes: N covers the batch (or is 64), a cluster never
-    has more CTAs than the item axis has 128-item slabs, and a split item
-    axis never overfills one wave."""
-    for B in (1, 7, 8, 9, 31, 64, 65, 200):
+    """Over ragged shapes: the queries are on M exactly when the batch is
+    over 32 and their 32-rule tiles fit in one wave; with the rules on M,
+    N covers the batch (or is 64); a cluster never has more CTAs than the
+    item axis has 128-item slabs, and a split item axis never overfills
+    one wave."""
+    for B in (1, 7, 8, 9, 31, 33, 64, 65, 200):
         for R in (1, 64, 127, 896, 5000, 16384):
             for I in (64, 128, 192, 1024):
                 g = kernel.geometry(B, R, I, sms)
-                assert g.n in kernel.QUERY_TILES
-                assert g.n >= min(B, 64)
+                q_tiles = -(-R // kernel.RULE_TILE) * -(-B // 64)
+                assert g.rules_on_m == (B <= 32 or q_tiles > sms)
+                if g.rules_on_m:
+                    assert g.n in kernel.QUERY_TILES
+                    assert g.n >= min(B, 64)
+                    tiles = -(-R // (64 * g.warpgroups)) * -(-B // g.n)
+                    assert g.warpgroups == (2 if -(-R // 64) * -(-B // g.n)
+                                            > sms else 1)
+                else:
+                    assert (g.warpgroups, g.n) == (1, kernel.RULE_TILE)
+                    tiles = q_tiles
                 assert g.cluster in kernel.CLUSTERS
                 assert g.cluster <= -(-I // kernel.SLAB)
-                tiles = -(-R // (64 * g.warpgroups)) * -(-B // g.n)
                 assert g.cluster == 1 or tiles * g.cluster <= sms
-                assert g.warpgroups == (2 if -(-R // 64) * -(-B // g.n)
-                                        > sms else 1)
-
-
-def test_int8_cpu_wrapper_ignores_the_geometry():
-    Qp, Ap, sp, cp, _ = _padded("8x128x128")
-    Q, A = torch.from_numpy(Qp).to(torch.int8), torch.from_numpy(Ap).to(
-        torch.int8)
-    s, c = torch.from_numpy(sp), torch.from_numpy(cp)
-    want = rule_scores_ref(Q, A, s, c)
-    for geom in (kernel.Geometry(2, 8, 4), kernel.Geometry(1, 64, 1)):
-        assert torch.equal(kernel.rule_scores_int8(Q, A, s, c, geom), want)

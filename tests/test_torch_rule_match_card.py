@@ -10,7 +10,9 @@ The function is exact (an integer dot compared with integral sizes), so
 the kernel must equal ``rule_scores_int8_plain`` bit for bit.  Inputs are
 drawn with numpy from a seed: baskets of density 0.3, antecedents of 1-3
 random items (one empty antecedent, which every basket matches) and
-random confidences.  Each call must add exactly one launch.
+random confidences.  Each call must add exactly one launch.  The launch
+geometry is the wrapper's own choice, so the shapes are picked to reach
+every geometry it can take (a CPU test checks that they do).
 """
 import numpy as np
 import pytest
@@ -40,9 +42,9 @@ def _inputs(B, R, I, seed, device):
     return [torch.from_numpy(x).to(device) for x in (Q, A, sizes, conf)]
 
 
-def _held(Q, A, sizes, conf, geom=None):
+def _held(Q, A, sizes, conf):
     launches = kernel.rule_scores_int8.launches
-    got = kernel.rule_scores_int8(Q, A, sizes, conf, geom)
+    got = kernel.rule_scores_int8(Q, A, sizes, conf)
     want = kernel.rule_scores_int8_plain(Q, A, sizes, conf)
     torch.cuda.synchronize()
     assert kernel.rule_scores_int8.launches == launches + 1
@@ -77,14 +79,49 @@ def test_int8_kernel_padding_rows_never_match(card):
     assert not want.any()
 
 
-# every geometry the kernel accepts, at a shape that splits the item axis
-# and leaves ragged tiles on both operands
-GEOMETRIES = [kernel.Geometry(wg, n, c) for wg in (1, 2)
-              for n in kernel.QUERY_TILES for c in kernel.CLUSTERS]
+# every launch geometry that kernel.geometry can pick: the queries on M
+# with each cluster; the rules on M with one warpgroup, N of 8, 16 or 32
+# and each cluster, or N = 64 (the 32-rule tiles of a batch over 32
+# overfill a wave, so 64-rule tiles leave no room for a cluster); two
+# warpgroups (64-rule tiles above one wave) with each N
+REACHABLE = ([kernel.Geometry(1, kernel.RULE_TILE, c, False)
+              for c in kernel.CLUSTERS]
+             + [kernel.Geometry(1, n, c) for n in kernel.QUERY_TILES[:-1]
+                for c in kernel.CLUSTERS]
+             + [kernel.Geometry(1, 64, 1)]
+             + [kernel.Geometry(2, n, 1) for n in kernel.QUERY_TILES])
+
+
+def _shape_for(geom, sms):
+    """A (B, R, I) for which kernel.geometry picks ``geom`` on ``sms``
+    SMs, with ragged tiles on both operands and a half last slab: the
+    batch just above the next smaller N (37 with the queries on M), 333
+    rules (or one tile more than a wave: of 32 rules for N = 64, of 64
+    rules for two warpgroups) and an item axis of as many slabs as the
+    cluster has CTAs."""
+    B = {8: 5, 16: 9, 32: 17, 64: 37}[geom.n if geom.rules_on_m else 64]
+    if geom.warpgroups == 2:
+        return B, 64 * (sms + 1) - 37, 960
+    if geom.rules_on_m and geom.n == 64:
+        return B, 32 * sms + 27, 960
+    return B, 333, kernel.SLAB * geom.cluster - 64
+
+
+def _geom_id(geom):
+    return "{}-wg{}-n{}-cluster{}".format(
+        "rules" if geom.rules_on_m else "queries", *geom[:3])
+
+
+@pytest.mark.parametrize("sms", [114, kernel.H100_SMS])
+@pytest.mark.parametrize("geom", REACHABLE, ids=_geom_id)
+def test_every_reachable_geometry_has_a_shape(geom, sms):
+    assert kernel.geometry(*_shape_for(geom, sms), sms) == geom
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", GEOMETRIES,
-                         ids=lambda g: "wg{}-n{}-cluster{}".format(*g))
+@pytest.mark.parametrize("geom", REACHABLE, ids=_geom_id)
 def test_int8_kernel_equals_plain_version_at_every_geometry(card, geom):
-    _held(*_inputs(37, 333, 1024, 5, card), geom=geom)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shape = _shape_for(geom, sms)
+    assert kernel.geometry(*shape, sms) == geom
+    _held(*_inputs(*shape, 5, card))
