@@ -10,11 +10,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. build all eight kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
-   path gives it (one transaction tile × the k=2 candidate batch) and at a
+   path gives it (one transaction tile × the k=2 candidate batch; the
+   int8 kernel also at the later rounds' 256 and 128 candidates) and at a
    few ragged shapes, and require exact equality with its plain PyTorch
-   version; time the kernel, the plain version and, for the int8 kernel,
-   ``torch._int_mm`` plus the compare-and-sum (a yardstick the port never
-   calls); then hold the intersect kernel (the Eclat plane's) exactly
+   version; time an empty launch (``torch.cuda._sleep(0)``, the launch
+   floor printed beside every kernel under 0.01 ms); time the kernel, the
+   plain version and, for the int8 kernel, ``torch._int_mm`` plus the
+   compare-and-sum (a yardstick the port never calls), the int8 kernel at
+   each round's shape with the launch geometry it took, and the packed
+   kernel's bound at the binary tensor cores' rate (``B1_OPS_PER_S``) and
+   at the CUDA cores' popcounts; then hold the intersect kernel (the Eclat
+   plane's) exactly
    against its plain version on random words, bit 31 included, at the
    shapes the vertical plane gives it (a dense-corpus tile, a sparse-corpus
    k=1 tile, a whole k=2 slab) and ragged ones, and time it at the first
@@ -24,7 +30,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref`` data
    plane — and require equal supports and rules, launches of each kernel
    on its path, one device-to-host read per counting round, and supports
-   that numpy recounts exactly;
+   that numpy recounts exactly; print the int8 kernel's time over the
+   ``mxu`` mine (its launches at each round's shape times that shape's
+   time) beside the mine's wall;
 4. mine the same corpus through ``make_miner`` with ``algorithm="eclat"``
    on the intersect kernel and on the plain ``ref`` plane, and with
    ``algorithm="auto"``, and require the apriori mine's supports and
@@ -49,12 +57,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 5. compile the mined rules into a ``RuleIndex`` and hold each rule-match
    kernel exactly against its plain version at the shapes serving gives
    it (that index against batches of 8 and 64 corpus baskets), at ragged
-   shapes, and at a wider index of 16,384 random rules; time both at the
-   64- and 8-basket shapes and the wide one, beside the plain versions
-   and, for the int8 kernel, ``torch._int_mm`` plus the compare-and-weight
-   (at 16 baskets or fewer with the rules as ``_int_mm``'s first operand,
-   which must have more than 16 rows), printing the int8 kernel's launch
-   geometry;
+   batches, rule counts and item axes, and at a wider index of 16,384
+   random rules; time both at the 64- and 8-basket shapes and the wide
+   one, beside the plain versions, the launch floor and, for the int8
+   kernel, ``torch._int_mm`` plus the compare-and-weight (at 16 baskets or
+   fewer with the rules as ``_int_mm``'s first operand, which must have
+   more than 16 rows), printing each kernel's launch geometry;
 6. serve 4,096 corpus baskets through ``RecommendationEngine.serve`` three
    times — the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref``
    scores — and require equal recommendations and reports, launches of
@@ -138,6 +146,16 @@ from unittest import mock
 # instruction throughput, compute 9.0).
 INT8_OPS_PER_S = 1979e12
 POPC_PER_SM_PER_CLOCK = 16
+# bit AND-popcount-adds a second on the binary tensor cores (wgmma
+# m64n256k256 .b1 .and.popc back to back on all 132 SMs), which the data
+# sheet does not give: the median of three runs of
+# tools/rule_match_packed_designs.py (7,844-7,897e12) on an NVIDIA H100
+# 80GB HBM3 at 700.00 W, whose s8 loop read 98-100% of the 1,979 TOP/s
+# above.  The packed kernels' operations bound counts at this rate.
+B1_OPS_PER_S = 7862e12
+# candidates a counting round of the dense mine pads to: k = 2, 3, then 4
+# and 5 (the mine line's m_padded)
+ROUND_M = (2176, 256, 128)
 
 CORPUS = dict(n_tx=100_000, n_items=1000, seed=0)   # T10I4D100K scale
 MIN_SUPPORT = 0.01
@@ -1142,13 +1160,29 @@ def main() -> int:
         check(kernel.support_count_int8(t, c, s),
               kernel.support_count_int8_plain(t, c, s),
               f"support_count_int8 [{n}, {m}, {i}]")
-    print("kernels match their plain versions exactly "
-          "(main-path shape + 3 ragged shapes)")
+    # the int8 kernel at the later rounds' shapes: the first 256 and 128
+    # candidates of the k=2 batch
+    if M != ROUND_M[0]:
+        raise AssertionError(f"the k=2 batch pads to {M}, not {ROUND_M[0]}")
+    for m in ROUND_M[1:]:
+        check(kernel.support_count_int8(Ti, Ci[:m], sizes[:m]),
+              kernel.support_count_int8_plain(Ti, Ci[:m], sizes[:m]),
+              f"support_count_int8 [{N}, {m}, {I}]")
+    print("kernels match their plain versions exactly (main-path shape, "
+          "the int8 kernel at every round's shape, 3 ragged shapes)")
 
-    def int_mm_count():
+    # an empty kernel queued behind others: the least a launch costs
+    floor_ms = _cuda_ms(torch, lambda: torch.cuda._sleep(0))
+    print(f"launch floor (torch.cuda._sleep(0), queued): {floor_ms:.5f} ms")
+
+    def vs_floor(ms):
+        return f", {ms / floor_ms:.2f}x the launch floor" if ms < 0.01 else ""
+
+    def int_mm_count(Ci, sizes):
         dots = torch._int_mm(Ti, Ci.t())
         return (dots == sizes[None, :]).sum(dim=0, dtype=torch.int32)
-    check(int_mm_count(), kernel.support_count_int8_plain(Ti, Ci, sizes),
+    check(int_mm_count(Ci, sizes),
+          kernel.support_count_int8_plain(Ti, Ci, sizes),
           "torch._int_mm yardstick")
     timing = {
         "packed": dict(
@@ -1162,12 +1196,14 @@ def main() -> int:
                 Ti, Ci, sizes)),
             plain_ms=_cuda_ms(torch, lambda: kernel.support_count_int8_plain(
                 Ti, Ci, sizes), reps=3),
-            library_ms=_cuda_ms(torch, int_mm_count)),
+            library_ms=_cuda_ms(torch, lambda: int_mm_count(Ci, sizes))),
     }
     clock_hz = float(_nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     popc_per_s = props.multi_processor_count * POPC_PER_SM_PER_CLOCK * clock_hz
+    # the packed kernel's AND-popcounts at the binary tensor cores' rate;
+    # the CUDA cores' popcount rate, its bound before, is printed beside
     bound = {
-        "packed": {"operations": N * M * W / popc_per_s * 1e3,
+        "packed": {"operations": N * M * W * 32 / B1_OPS_PER_S * 1e3,
                    "bytes": (N * W * 4 + M * W * 4 + 2 * M * 4)
                    / HBM_BW * 1e3},
         "int8": {"operations": 2 * N * M * I / INT8_OPS_PER_S * 1e3,
@@ -1178,9 +1214,32 @@ def main() -> int:
         by = max(bound[k], key=bound[k].get)
         v.update(bound_ms=bound[k][by], bound_by=by)
         print(f"{k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
-              f"library {v['library_ms']} ms, bound {v['bound_ms']:.4f} ms "
-              f"({by}; {props.multi_processor_count} SMs at "
-              f"{clock_hz / 1e6:.0f} MHz)")
+              f"library {v['library_ms']} ms, bound {v['bound_ms']:.5f} ms "
+              f"({by})")
+    print(f"packed on CUDA cores' popcounts ({props.multi_processor_count} "
+          f"SMs at {clock_hz / 1e6:.0f} MHz) would take at least "
+          f"{N * M * W / popc_per_s * 1e3:.4f} ms")
+    timing["packed"]["cuda_core_bound_ms"] = N * M * W / popc_per_s * 1e3
+
+    # the int8 kernel at each round's shape, beside _int_mm and its bound
+    timing["int8"]["rounds"] = {}
+    for m in ROUND_M:
+        bnd = {"operations": 2 * N * m * I / INT8_OPS_PER_S * 1e3,
+               "bytes": (N * I + m * I + 2 * m * 4) / HBM_BW * 1e3}
+        by = max(bnd, key=bnd.get)
+        geom = kernel.geometry(N, m, I, props.multi_processor_count)
+        row = dict(
+            ms=_cuda_ms(torch, lambda: kernel.support_count_int8(
+                Ti, Ci[:m], sizes[:m])),
+            library_ms=_cuda_ms(torch, lambda: int_mm_count(Ci[:m],
+                                                            sizes[:m])),
+            bound_ms=bnd[by], bound_by=by,
+            geometry=geom.describe(N, m, I))
+        timing["int8"]["rounds"][m] = row
+        print(f"int8 [{N}, {m}, {I}]: kernel {row['ms']:.4f} ms"
+              f"{vs_floor(row['ms'])}, _int_mm {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms ({by}); launch: "
+              f"{row['geometry']}")
 
     # the intersect kernel at the vertical plane's shapes: W is the
     # corpus's tid words padded to 128, M a dense-corpus tile (128 rows),
@@ -1224,9 +1283,9 @@ def main() -> int:
             plain_ms=_cuda_ms(torch, lambda: intersect.intersect_count_plain(
                 a, b), reps=3),
             library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[m, w])
-        print(f"intersect [{m}, {w}]: kernel {out['ms']:.4f} ms, plain "
-              f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.5f} ms "
-              f"({by})")
+        print(f"intersect [{m}, {w}]: kernel {out['ms']:.4f} ms"
+              f"{vs_floor(out['ms'])}, plain {out['plain_ms']:.4f} ms, "
+              f"bound {out['bound_ms']:.5f} ms ({by})")
         return out
 
     timing["intersect"] = time_intersect(*ix_inputs["tile"])
@@ -1293,6 +1352,25 @@ def main() -> int:
         raise AssertionError("a path launched another path's kernel")
     if launches["packed"] != launches["int8"]:
         raise AssertionError("both variants must count the same tiles")
+
+    # the int8 kernel's device time over the mxu mine: its launches at
+    # each round's shape times that shape's time (phase 2)
+    per_shape = {}
+    for r in mxu.report.rounds:
+        if r.m_padded:
+            per_shape[r.m_padded] = per_shape.get(r.m_padded, 0) + N_TILES
+    if sum(per_shape.values()) != on_mxu["int8"] or any(
+            m not in timing["int8"]["rounds"] for m in per_shape):
+        raise AssertionError(f"the mxu mine launched the int8 kernel at "
+                             f"{per_shape}, {on_mxu['int8']} in all")
+    kernel_ms = sum(n * timing["int8"]["rounds"][m]["ms"]
+                    for m, n in per_shape.items())
+    timing["int8"]["mine_kernel_ms"] = kernel_ms
+    print(f"int8 kernel over the mxu mine: "
+          + " + ".join(f"{n} x {timing['int8']['rounds'][m]['ms']:.4f} ms "
+                       f"(M {m})" for m, n in per_shape.items())
+          + f" = {kernel_ms:.3f} ms of its {walls['apriori mxu']:.3f} s "
+          "wall")
 
     for name, res in (("mxu", mxu), ("ref", ref)):
         if res.supports != packed.supports or res.rules != packed.rules:
@@ -1588,7 +1666,7 @@ def main() -> int:
     if not (hits > 0).any():
         raise AssertionError("no corpus basket matches a mined rule")
     g = np.random.default_rng(2)
-    for b, r, i in [(5, 200, 128), (64, 333, 1024)]:
+    for b, r, i in [(5, 200, 128), (64, 333, 1024), (9, 129, 1152)]:
         Qr = torch.from_numpy((g.random((b, i)) < 0.3).astype(np.int8))
         Ar = torch.from_numpy((g.random((r, i)) < 4 / i).astype(np.int8))
         Ar[0] = 0                          # |a| = 0 matches every basket
@@ -1607,7 +1685,7 @@ def main() -> int:
     rule_match_both(baskets, A_wide, sizes_wide, conf_wide,
                     f"(wide index [{WIDE_RULES}, {Ip}])")
     print("rule-match kernels match their plain versions exactly "
-          "(serving shapes + 3 ragged shapes + a wide index)")
+          "(serving shapes + 4 ragged shapes + a wide index)")
 
     def int_mm_scores(Qm, Am, s_i, cf):
         # torch._int_mm's first operand needs more than 16 rows: a small
@@ -1627,7 +1705,8 @@ def main() -> int:
               "torch._int_mm yardstick")
         W_ = Ip // 32
         bound = {
-            "rm_packed": {"operations": B_ * R_ * W_ / popc_per_s * 1e3,
+            "rm_packed": {"operations": B_ * R_ * W_ * 32 / B1_OPS_PER_S
+                          * 1e3,
                           "bytes": (B_ * W_ * 4 + R_ * W_ * 4 + 2 * R_ * 4
                                     + B_ * R_ * 4) / HBM_BW * 1e3},
             "rm_int8": {"operations": 2 * B_ * R_ * Ip / INT8_OPS_PER_S
@@ -1652,15 +1731,18 @@ def main() -> int:
                 library_ms=_cuda_ms(torch, lambda: int_mm_scores(
                     Qm, Am, s_i, cf))),
         }
-        geom = rm_kernel.geometry(B_, R_, Ip, props.multi_processor_count)
-        out["rm_int8"]["geometry"] = geom.describe(B_, R_, Ip)
+        sms = props.multi_processor_count
+        out["rm_int8"]["geometry"] = rm_kernel.geometry(
+            B_, R_, Ip, sms).describe(B_, R_, Ip)
+        out["rm_packed"]["geometry"] = rm_fused.geometry(
+            B_, R_, W_, sms).describe(B_, R_, 4 * W_)
         for k, v in out.items():
             by = max(bound[k], key=bound[k].get)
             v.update(bound_ms=bound[k][by], bound_by=by)
-            print(f"{k} [{B_}, {R_}, {Ip}]: kernel {v['ms']:.4f} ms, plain "
-                  f"{v['plain_ms']:.4f} ms, library {v['library_ms']} ms, "
-                  f"bound {v['bound_ms']:.5f} ms ({by})"
-                  + (f"; launch: {v['geometry']}" if "geometry" in v else ""))
+            print(f"{k} [{B_}, {R_}, {Ip}]: kernel {v['ms']:.4f} ms"
+                  f"{vs_floor(v['ms'])}, plain {v['plain_ms']:.4f} ms, "
+                  f"library {v['library_ms']} ms, bound {v['bound_ms']:.5f} "
+                  f"ms ({by}); launch: {v['geometry']}")
         return out
 
     timing.update(time_rule_match(baskets, A8, sizes_f, conf))
@@ -1785,6 +1867,8 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))
+        if rows[-1]["ms"] < 0.01:
+            rows[-1]["launch_floor_ms"] = floor_ms
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

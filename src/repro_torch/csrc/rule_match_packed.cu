@@ -1,110 +1,64 @@
-// Packed-popcount rule matching for Hopper (sm_90a).
+// Packed-bit rule matching on Hopper's binary tensor cores (sm_90a).
 //
 // Replaces the TPU kernel rule_scores_fused_pallas
-// (src/repro/kernels/rule_match/fused.py):
+// (src/repro/kernels/rule_match/fused.py:48, its pallas_call at :59):
 //
 //   out[b, r] = [ sum_w popc(Qw[b, w] & Aw[r, w]) == sizes[r] ] * conf[r]
 //
-// Bound: operations at the serving shapes.  B*R*W AND+popcount+add triples
-// run against 16 popcounts per clock per SM, while the bytes are one read of
-// Qw, Aw, sizes and conf and one write of the [B, R] float output.  Unlike
-// mining, the output is the whole score matrix, so the kernel is
-// output-stationary and needs no atomics: a block owns 64 rules (one per
-// thread, its words walked 32 at a time in registers) and a group of 8
-// queries, whose words sit in shared memory where every thread of a warp
-// reads the same 16 bytes (a broadcast).  Consecutive threads write
-// consecutive r, so the stores coalesce.  Blocks of 64 rules keep a batch of
-// 8 queries spread over many SMs when the index is wide.
+// Qw [B, W] and Aw [R, W] are items packed 32 to an int32 word, sizes
+// int32 (-1 on padded rows, which a count >= 0 never equals), conf and out
+// float32.
 //
-// Padded rule rows carry sizes = -1: a dot is >= 0, so they never match.
-// The caller passes W % 4 == 0 with Qw and Aw 16-byte aligned (the words are
-// read as uint4).
+// What bounds it.  At the serving shapes the work is small: a batch of 64
+// queries against 896 rules of 32 words is 1.8 M word ANDs, and the bytes
+// (Aw once, Qw, sizes, conf, the [B, R] float output) take 0.1-0.2 us at
+// 3.35 TB/s.  So the launch and one trip to memory set the time, and the
+// kernel is built to expose one memory latency and nothing more.  On CUDA
+// cores the popcounts run at 16 a clock an SM; a wide index (64 x 16,384
+// rules) needs 8 us of them, so there the arithmetic mattered too.
+//
+// Design: the AND-popcount is wgmma m64nNk256 .b1 .and.popc, Hopper's
+// binary tensor-core product, which sums popc(a & b) over 256 bits of a
+// row, exactly this kernel's dot (7.9e15 bit AND-popcount-adds a second
+// on the card, 59 times its CUDA cores' popcounts; tools/wgmma_rate.cu).
+// A k256 b1 step reads 32 bytes of a row, as a k32 s8 step does, so the
+// int8 rule-match kernel's machinery carries over whole
+// (rule_match_wgmma.cuh): TMA loads of 128-byte slabs (32 words, the whole
+// row at W = 32) onto an mbarrier, 128-byte-swizzled K-major descriptors,
+// the row split over a cluster when it spans several slabs, and without a
+// cluster each thread comparing, weighting and storing its own
+// accumulators, its rules' sizes and confidences loaded while the slabs
+// land.  Only the instruction and the int32 sizes differ.  The geometry
+// (kernels/rule_match/fused.py's geometry()) puts the rules on M, 64 a
+// CTA, and the batch on N.
+//
+// Chosen over (tools/rule_match_packed_designs.py, medians of 9 rounds,
+// NVIDIA H100 80GB HBM3, 700.00 W), at [64 x 896], [8 x 896] and [64 x
+// 16,384] x 32 words: this kernel 0.00323 / 0.00272 / 0.00405 ms; the
+// queries on M 0.00351 / 0.00294 / 0.00609; a CUDA-core design that fills
+// the SMs (tools/rule_match_packed_cuda_cores.cu) 0.00363 / 0.00332 /
+// 0.01698; the kernel it replaced (a rule a thread, 64 threads a CTA)
+// 0.00449 / 0.00415 / 0.01400; an empty launch 0.00189-0.00190.  So what
+// is left of the time is the launch and one trip to memory: a CUDA graph
+// over a serve's launches, or a top-k fused into the epilogue, are what
+// could still move it.
+//
+// Qw and Aw are contiguous and 16-byte aligned, W % 4 == 0.
 
-#include <algorithm>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "rule_match_wgmma.cuh"
 
-namespace {
-
-constexpr int kThreads = 64;  // rules per block, one per thread
-constexpr int kQueries = 8;   // queries per block (serving pads B to 8)
-constexpr int kWords = 32;    // words per stage (rule words in registers)
-constexpr int kQuads = kWords / 4;
-
-__global__ void __launch_bounds__(kThreads)
-rule_match_packed_kernel(const uint32_t* __restrict__ Qw,
-                         const uint32_t* __restrict__ Aw,
-                         const int32_t* __restrict__ sizes,
-                         const float* __restrict__ conf,
-                         float* __restrict__ out, int B, int R, int W) {
-  __shared__ __align__(16) uint32_t sQ[kQueries][kWords];
-
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = r < R;
-  const uint4* arow =
-      reinterpret_cast<const uint4*>(Aw + static_cast<size_t>(live ? r : 0) * W);
-  const int size = live ? sizes[r] : -1;
-  const float c = live ? conf[r] : 0.0f;
-
-  for (int q0 = blockIdx.y * kQueries; q0 < B; q0 += gridDim.y * kQueries) {
-    const int nq = min(kQueries, B - q0);
-    int dot[kQueries];
-#pragma unroll
-    for (int b = 0; b < kQueries; ++b) dot[b] = 0;
-
-    for (int w0 = 0; w0 < W; w0 += kWords) {
-      const int nquad = min(kWords, W - w0) / 4;
-      uint4 a[kQuads];
-#pragma unroll
-      for (int q = 0; q < kQuads; ++q)
-        a[q] = q < nquad ? __ldg(arow + w0 / 4 + q) : make_uint4(0, 0, 0, 0);
-
-      __syncthreads();  // the previous stage has been read
-      for (int i = threadIdx.x; i < kQueries * kQuads; i += kThreads) {
-        const int b = i / kQuads, q = i % kQuads;
-        uint4 x = make_uint4(0, 0, 0, 0);
-        if (b < nq && q < nquad)
-          x = __ldg(reinterpret_cast<const uint4*>(
-                        Qw + static_cast<size_t>(q0 + b) * W + w0) + q);
-        reinterpret_cast<uint4*>(sQ[b])[q] = x;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int b = 0; b < kQueries; ++b) {
-        const uint4* qrow = reinterpret_cast<const uint4*>(sQ[b]);
-#pragma unroll
-        for (int q = 0; q < kQuads; ++q) {
-          const uint4 t = qrow[q];
-          dot[b] += __popc(t.x & a[q].x) + __popc(t.y & a[q].y) +
-                    __popc(t.z & a[q].z) + __popc(t.w & a[q].w);
-        }
-      }
-    }
-    if (live) {
-#pragma unroll
-      for (int b = 0; b < kQueries; ++b)
-        if (b < nq)
-          out[static_cast<size_t>(q0 + b) * R + r] =
-              static_cast<float>(dot[b] == size) * c;
-    }
-  }
-}
-
-}  // namespace
-
+// Qw [B, W] and Aw [R, W] int32 words, sizes [R] int32, conf [R] float32,
+// out [B, R] float32; the geometry as rule_match_int8_launch's, with the
+// 4W bytes of a row in place of the items.
 extern "C" int rule_match_packed_launch(const void* Qw, const void* Aw,
                                         const void* sizes, const void* conf,
                                         void* out, int B, int R, int W,
+                                        int rules_on_m, int wg, int n, int cs,
                                         void* stream) {
-  const int grid_x = (R + kThreads - 1) / kThreads;
-  const int grid_y = std::min(65535, (B + kQueries - 1) / kQueries);
-  rule_match_packed_kernel<<<dim3(grid_x, grid_y), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(Qw), static_cast<const uint32_t*>(Aw),
-      static_cast<const int32_t*>(sizes), static_cast<const float*>(conf),
-      static_cast<float*>(out), B, R, W);
-  return static_cast<int>(cudaGetLastError());
+  const RuleMatchArgs a{Qw, Aw, sizes, static_cast<const float*>(conf),
+                        static_cast<float*>(out), B, R, 4 * W, cs,
+                        static_cast<cudaStream_t>(stream)};
+  return rule_match_launch<true>(a, rules_on_m, wg, n);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -1,182 +1,368 @@
 // Int8 tensor-core support counting for Hopper (sm_90a).
 //
 // Replaces the TPU kernel support_count_pallas
-// (src/repro/kernels/support_count/kernel.py), which runs the containment
-// test as an int8 matmul on the matrix unit:
+// (src/repro/kernels/support_count/kernel.py:65, its pallas_call at :74),
+// which runs the containment test as an int8 matmul on the matrix unit:
 //
 //   out[m] += sum_t [ sum_i T[t, i] * C[m, i] == sizes[m] ]
 //
-// Bound: operations.  2*N*M*I int8 operations against 1,979 dense TOP/s; the
-// bytes are one read of T [N, I] and C [M, I].  Design: mma.sync m16n8k32
-// s8 x s8 -> s32 on the tensor cores (integer accumulation, exact), with the
-// compare against sizes and the sum over transactions in the epilogue, so
-// the [N, M] dot matrix never leaves registers.  A block of 4 warps owns 64
-// transactions x 128 candidates (each warp 32 x 64: 2 x 8 mma tiles) and
-// walks the item axis 64 bytes at a time through shared memory, whose row
-// stride of 80 bytes puts the 32 lanes' fragment loads on 32 distinct banks.
-// Blocks run in no order; each folds its hits per candidate in shared memory
-// and atomically adds them to `out` (integer atomics commute: exact).  A
-// block loops over transaction tiles when N needs more than 65535 of them.
-// TMA and wgmma are left for a later change.
+// T [N, I] and C [M, I] are 0/1 int8, sizes and out [M] int32; exact.
 //
-// The caller zeroes `out`, and passes I % 64 == 0 with T and C 16-byte
-// aligned (rows are staged as int4).
+// What bounds it.  The mining rounds give it one transaction tile [3,128 x
+// 1,024] against the round's candidates: M = 2,176 at k = 2, then 256,
+// 128, 128.  At k = 2 the 2*N*M*I int8 operations take 7.0 us at the
+// dense 1,979 TOP/s, five times the bytes (one read of T and C); at M =
+// 128 the 3.2 MB of T set the bound, about 1 us, so there the launch, one
+// trip to memory and filling the card are what count.
+//
+// Design.
+// - wgmma m64nNk32 s8 x s8 -> s32 with the transactions on M (64 rows a
+//   consumer warpgroup, one or two warpgroups a CTA) and a tile of N = 64,
+//   128 or 256 candidates on N; both operands K-major, as T and C are
+//   stored, read by 128-byte-swizzled descriptors (sm90.cuh).  Integer
+//   accumulation: exact.
+// - A producer warp, one thread of it issuing TMA loads of 128-item slabs
+//   of both operands into a ring of stages, each with a full barrier (the
+//   copy's bytes) and an empty one (every consumer warp arrives once its
+//   products have read the stage), so loads stay in flight while the
+//   tensor cores work; the consumers keep one slab's products in flight
+//   behind the next.  TMA's zero fill covers ragged N, M and I.
+// - Epilogue in registers: each dot is compared with its candidate's size
+//   (from shared memory; -1 past M); transaction rows past N are masked,
+//   since their zero-filled dot of 0 equals the size of an empty
+//   candidate.  A thread keeps its hits two candidates a register; shuffles
+//   sum them over the warp's rows, shared-memory atomics over the warps,
+//   and one atomicAdd a candidate a CTA adds them to `out` (integer atomics
+//   commute: exact).  A CTA walks further transaction tiles past 65,535 of
+//   them.
+// - Filling the card: a small round takes narrower candidate tiles (M =
+//   256 as 2 x 128, M = 128 as 2 x 64: 98 CTAs, every slab of a CTA in
+//   flight at once).  Where even 64-wide tiles leave most of the card idle
+//   (a short transaction tile), a tile's item axis is split over a
+//   cluster of 2, 4 or 8 CTAs.  The compare is not linear, so the partial
+//   dots meet first: each CTA writes its int32 partials to its own shared
+//   memory, and after a cluster barrier each takes 1/cs of the tile's
+//   rows, adds the cluster's partials through distributed shared memory,
+//   compares and counts.  At the mining rounds the narrower tiles won:
+//   0.0096 / 0.0087 ms at M = 256 / 128 against 0.0115 / 0.0099 for the
+//   best cluster (tools/support_count_int8_designs.py, medians of 5
+//   rounds).
+// - The geometry (warpgroups, N, cluster, stages) is the caller's:
+//   kernels/support_count/kernel.py's geometry() picks it for each shape.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; each time a
+// wrapper call, the zeroing of `out` included): 0.0302 ms at M = 2,176,
+// 0.0105 at 256, 0.0092 at 128, against 0.0821, 0.0281 and 0.0251 for
+// torch._int_mm plus the compare and sum, and 0.0739 / 0.034 / 0.035 for
+// the mma.sync kernel this one replaced.  At k = 2 it runs at 4.3x its
+// operations bound: its 225 CTAs read T 9 times and C 25 times from L2,
+// 86 MB in all, about 12 KB a million products, more than L2 feeds the
+// tensor cores at their rate; multicasting a tile's candidates over a
+// cluster of transaction tiles is what could cut that.
+//
+// The caller zeroes `out`; T and C are contiguous and 16-byte aligned with
+// I % 16 == 0 (the wrapper asks I % 64 == 0).
 
-#include <algorithm>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kBN = 64;         // transactions per block tile
-constexpr int kBM = 128;        // candidates per block tile
-constexpr int kBK = 64;         // items (bytes) per shared-memory stage
-constexpr int kLds = kBK + 16;  // padded row stride in bytes
-constexpr int kThreads = 128;   // 4 warps: 2 (transactions) x 2 (candidates)
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kMaxStages = 8;     // slabs in flight in a CTA's ring
+constexpr int kPad = 4;           // ints of padding a partials row
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// A CTA: WG consumer warpgroups of 64 transactions each against N
+// candidates, and one producer warp.
+template <int WG, int N>
+struct Tile {
+  static constexpr int kRows = 64 * WG;               // transactions a tile
+  static constexpr int kConsumers = 128 * WG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr uint32_t kTBytes = kRows * kSlab;
+  static constexpr uint32_t kStageBytes = (kRows + N) * kSlab;
+  static constexpr uint32_t kPartialBytes = kRows * (N + kPad) * 4;
+  // the ring, or the partial dots of a cluster where they take more
+  __host__ __device__ static constexpr uint32_t region(int stages) {
+    return stages * kStageBytes > kPartialBytes ? stages * kStageBytes
+                                                : kPartialBytes;
+  }
+  // the 1 KB swizzle alignment, the ring, a full and an empty barrier a
+  // stage, the candidates' sizes and hits
+  __host__ __device__ static constexpr size_t smem_bytes(int stages) {
+    return 1024 + region(stages) + 16 * stages + 8 * N;
+  }
+};
 
-__global__ void __launch_bounds__(kThreads)
-support_count_int8_kernel(const int8_t* __restrict__ T,
-                          const int8_t* __restrict__ C,
-                          const int32_t* __restrict__ sizes,
-                          int32_t* __restrict__ out, int N, int M, int I) {
-  __shared__ __align__(16) int8_t sT[kBN * kLds];
-  __shared__ __align__(16) int8_t sC[kBM * kLds];
-  __shared__ int s_hits[kBM];
+template <int WG, int N>
+__global__ void __launch_bounds__(Tile<WG, N>::kThreads, 1)
+support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
+                          const __grid_constant__ CUtensorMap tm_c,
+                          const int* __restrict__ sizes,
+                          int* __restrict__ out, int n_tx, int M, int I,
+                          int stages) {
+  using T = Tile<WG, N>;
+  static_assert(T::kConsumers % (N / 4) == 0, "a thread keeps one quad");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* tile = smem + (base - smem_u32(smem));
+  const uint32_t region = T::region(stages);
+  const uint32_t full = base + region, empty = full + 8 * stages;
+  int* partial = reinterpret_cast<int*>(tile);
+  int* s_sizes = reinterpret_cast<int*>(tile + region + 16 * stages);
+  int* s_hits = s_sizes + N;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // mma group / thread-in-group
-  const int wm = warp >> 1;               // rows wm*32 .. +32 of the tile
-  const int wn = warp & 1;                // columns wn*64 .. +64 of the tile
-  const int col0 = blockIdx.x * kBM;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c0 = (blockIdx.x / cs) * N;
+  // this rank's slabs of the item axis, and this CTA's transaction tiles
+  const int slabs = (I + kSlab - 1) / kSlab;
+  const int s_begin = rank * slabs / cs;
+  const int count = (rank + 1) * slabs / cs - s_begin;
+  const int t_tiles = (n_tx + T::kRows - 1) / T::kRows;
+  const int iters = static_cast<int>(blockIdx.y) < t_tiles
+                        ? (t_tiles - 1 - blockIdx.y) / gridDim.y + 1
+                        : 0;
 
-  s_hits[tid] = 0;  // kThreads == kBM
-
-  // this lane's epilogue columns: n-tile ni, column 2t + j; a dot is >= 0,
-  // so the -1 of a column past M never matches
-  int size_of[8][2];
-  int hits[8][2];
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = col0 + wn * 64 + ni * 8 + 2 * t + j;
-      size_of[ni][j] = c < M ? sizes[c] : -1;
-      hits[ni][j] = 0;
+  for (int c = threadIdx.x; c < N; c += blockDim.x) {
+    s_sizes[c] = c0 + c < M ? sizes[c0 + c] : -1;   // a dot is >= 0
+    s_hits[c] = 0;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * WG);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int row0 = blockIdx.y * kBN; row0 < N; row0 += gridDim.y * kBN) {
-    int acc[2][8][4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool consumer = warp < 4 * WG;
+  const int g = lane / 4, t = lane % 4;
+  int acc[N / 2];
+  uint32_t hits[N / 8];          // columns 8j + 2t (low half) and + 1
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+  for (int e = 0; e < N / 2; ++e) acc[e] = 0;
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  for (int j = 0; j < N / 8; ++j) hits[j] = 0;
 
-    for (int k0 = 0; k0 < I; k0 += kBK) {
-      __syncthreads();  // the previous stage has been read
-      for (int i = tid; i < kBN * kBK / 16; i += kThreads) {
-        const int r = i / (kBK / 16), v = i % (kBK / 16);
-        int4 x = make_int4(0, 0, 0, 0);
-        if (row0 + r < N)
-          x = __ldg(reinterpret_cast<const int4*>(
-              T + static_cast<size_t>(row0 + r) * I + k0 + v * 16));
-        *reinterpret_cast<int4*>(sT + r * kLds + v * 16) = x;
-      }
-      for (int i = tid; i < kBM * kBK / 16; i += kThreads) {
-        const int r = i / (kBK / 16), v = i % (kBK / 16);
-        int4 x = make_int4(0, 0, 0, 0);
-        if (col0 + r < M)
-          x = __ldg(reinterpret_cast<const int4*>(
-              C + static_cast<size_t>(col0 + r) * I + k0 + v * 16));
-        *reinterpret_cast<int4*>(sC + r * kLds + v * 16) = x;
-      }
-      __syncthreads();
-
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 32) {
-        // A (16 x 32, row-major): a0/a1 rows g/g+8 at k 4t..4t+3,
-        // a2/a3 the same rows at k 16+4t..; B (32 x 8, column-major, i.e.
-        // a candidate row of C): b0 at k 4t.., b1 at k 16+4t.., column g
-        uint32_t a[2][4], b[8][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int8_t* p = sT + (wm * 32 + mi * 16 + g) * kLds + ks + 4 * t;
-          a[mi][0] = ld32(p);
-          a[mi][1] = ld32(p + 8 * kLds);
-          a[mi][2] = ld32(p + 16);
-          a[mi][3] = ld32(p + 8 * kLds + 16);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const int8_t* q = sC + (wn * 64 + ni * 8 + g) * kLds + ks + 4 * t;
-          b[ni][0] = ld32(q);
-          b[ni][1] = ld32(q + 16);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+  if (!consumer) {
+    // ---- producer: slab i of this CTA into stage i % stages -----------
+    if (lane == 0) {
+      for (int i = 0; i < iters * count; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
+        const int row0 = (blockIdx.y + (i / count) * gridDim.y) * T::kRows;
+        const int col = (s_begin + i % count) * kSlab;
+        const uint32_t dst = base + s * T::kStageBytes;
+        mbar_expect_tx(full + 8 * s, T::kStageBytes);
+        tma_load(dst, &tm_t, full + 8 * s, col, row0);
+        tma_load(dst + T::kTBytes, &tm_c, full + 8 * s, col, c0);
       }
     }
-
-    // epilogue: d0/d1 are row g, columns 2t/2t+1; d2/d3 are row g+8
+  } else {
+    // ---- consumers: each warpgroup its 64 transactions -----------------
+    const int wg = warp / 4;
+    for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = row0 + wm * 32 + mi * 16 + g;
-      const bool lo = r < N, hi = r + 8 < N;
+      for (int e = 0; e < N / 2; ++e) acc[e] = 0;
+      for (int k = 0; k < count; ++k) {
+        const int i = it * count + k, s = i % stages;
+        mbar_wait(full + 8 * s, (i / stages) & 1);
+        const uint32_t a = base + s * T::kStageBytes + wg * 64 * kSlab;
+        const uint32_t b = base + s * T::kStageBytes + T::kTBytes;
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
+        for (int kk = 0; kk < kSlab / 32; ++kk)
+          wgmma_s8<N>(acc, smem_desc(a + 32 * kk), smem_desc(b + 32 * kk),
+                      1);
+        wgmma_commit();
+        wgmma_wait<1>();         // the previous slab's products are done
+        fence_regs(acc);
+        if (k > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % stages));
+      }
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (count > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((it * count + count - 1) % stages));
+      if (cs == 1) {
+        // compare in registers; rows past n_tx are zero-filled, masked
+        const int r = (blockIdx.y + it * gridDim.y) * T::kRows + wg * 64 +
+                      16 * (warp % 4) + g;
+        const bool lo = r < n_tx, hi = r + 8 < n_tx;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          hits[ni][j] += (lo & (acc[mi][ni][j] == size_of[ni][j])) +
-                         (hi & (acc[mi][ni][2 + j] == size_of[ni][j]));
+        for (int j = 0; j < N / 8; ++j) {
+          const int s0 = s_sizes[8 * j + 2 * t];
+          const int s1 = s_sizes[8 * j + 2 * t + 1];
+          const uint32_t h0 = (lo & (acc[4 * j] == s0)) +
+                              (hi & (acc[4 * j + 2] == s0));
+          const uint32_t h1 = (lo & (acc[4 * j + 1] == s1)) +
+                              (hi & (acc[4 * j + 3] == s1));
+          hits[j] += h0 | h1 << 16;
+        }
+      }
     }
   }
+  __syncthreads();               // every product is done, the ring drained
 
-  __syncthreads();  // s_hits is zeroed even when I == 0 skipped the stages
-  // sum over the 8 groups g (lane bits 2..4) that share a column
+  if (cs == 1) {
+    // a column's 8 rows groups g (lane bits 2-4) meet in three shuffles;
+    // each half stays below 2**16 (16 hits a tile, at most 512 tiles)
+    if (consumer) {
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      int h = hits[ni][j];
-      h += __shfl_xor_sync(0xffffffffu, h, 4);
-      h += __shfl_xor_sync(0xffffffffu, h, 8);
-      h += __shfl_xor_sync(0xffffffffu, h, 16);
-      if (g == 0 && h) atomicAdd(&s_hits[wn * 64 + ni * 8 + 2 * t + j], h);
+      for (int j = 0; j < N / 8; ++j) {
+        uint32_t v = hits[j];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0 && v) {
+          const int lo = static_cast<int>(v & 0xFFFFu);
+          const int hi = static_cast<int>(v >> 16);
+          if (lo) atomicAdd(&s_hits[8 * j + 2 * t], lo);
+          if (hi) atomicAdd(&s_hits[8 * j + 2 * t + 1], hi);
+        }
+      }
     }
+  } else {
+    // one transaction tile a CTA (the launcher sees to it): partials
+    // [rows][N + kPad] over the drained ring, then this rank's rows
+    if (consumer) {
+      const int wg = warp / 4;
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) {
+        const int row = wg * 64 + 16 * (warp % 4) + g + 8 * ((e % 4) / 2);
+        const int col = 8 * (e / 4) + 2 * t + e % 2;
+        partial[row * (N + kPad) + col] = acc[e];
+      }
+    }
+    cluster.sync();              // every rank's partials are written
+    if (consumer) {
+      constexpr int kQuads = N / 4;
+      const int rows = T::kRows / cs;
+      const int row0 = blockIdx.y * T::kRows;
+      const int q = threadIdx.x % kQuads;
+      const int4 sz = *reinterpret_cast<const int4*>(s_sizes + 4 * q);
+      int h[4] = {0, 0, 0, 0};
+      for (int e = threadIdx.x; e < rows * kQuads; e += T::kConsumers) {
+        const int r = rank * rows + e / kQuads;
+        if (row0 + r >= n_tx) break;        // rows only grow with e
+        int* local = partial + r * (N + kPad) + 4 * q;
+        int4 sum = make_int4(0, 0, 0, 0);
+        for (int c = 0; c < cs; ++c) {
+          const int4 p = *reinterpret_cast<const int4*>(
+              cluster.map_shared_rank(local, c));
+          sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
+        }
+        h[0] += sum.x == sz.x;
+        h[1] += sum.y == sz.y;
+        h[2] += sum.z == sz.z;
+        h[3] += sum.w == sz.w;
+      }
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        if (h[x]) atomicAdd(&s_hits[4 * q + x], h[x]);
+    }
+  }
   __syncthreads();
-  const int c = col0 + tid;
-  if (c < M && s_hits[tid]) atomicAdd(out + c, s_hits[tid]);
+  for (int c = threadIdx.x; c < N; c += blockDim.x)
+    if (c0 + c < M && s_hits[c]) atomicAdd(out + c0 + c, s_hits[c]);
+  if (cs > 1) cluster.sync();    // no rank leaves while others read it
+}
+
+struct Args {
+  const void* T;
+  const void* C;
+  const int* sizes;
+  int* out;
+  int N, M, I, cs, stages;
+  cudaStream_t stream;
+};
+
+template <int WG, int N>
+int launch(const Args& a) {
+  using Tl = Tile<WG, N>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tm_t, tm_c;
+  if (!encode_map(encode, &tm_t, a.T, a.N, a.I, Tl::kRows) ||
+      !encode_map(encode, &tm_c, a.C, a.M, a.I, N))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int t_tiles = (a.N + Tl::kRows - 1) / Tl::kRows;
+  const int grid_y = t_tiles < 65535 ? t_tiles : 65535;
+  if (a.cs > 1 && grid_y < t_tiles)   // the cluster epilogue: one tile a CTA
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int slabs = (a.I + kSlab - 1) / kSlab;
+  const int per_cta = (slabs + a.cs - 1) / a.cs *
+                      ((t_tiles + grid_y - 1) / grid_y);
+  // a consumer frees a stage only once the next slab's products are
+  // issued, so a CTA that reads more than one slab needs two stages
+  int stages = a.stages < kMaxStages ? a.stages : kMaxStages;
+  if (stages > per_cta) stages = per_cta;
+  if (stages < 2) stages = per_cta > 1 ? 2 : 1;
+  const size_t smem = Tl::smem_bytes(stages);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = support_count_int8_kernel<WG, N>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.M + N - 1) / N * a.cs, grid_y);
+  cfg.blockDim = dim3(Tl::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm_t, tm_c, a.sizes, a.out, a.N,
+                           a.M, a.I, stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// T [N, I] and C [M, I] int8, sizes and out [M] int32, out zeroed; T and C
+// contiguous and 16-byte aligned, I % 16 == 0.  The geometry
+// (kernels/support_count/kernel.py's geometry()): wg in {1, 2} consumer
+// warpgroups (64 transactions each), n in {64, 128, 256} candidates a
+// tile, cs in {1, 2, 4, 8} CTAs splitting the item axis (with more than
+// one only where every transaction tile has its own CTA), and up to
+// `stages` slabs in flight (at most 8 and as many as a CTA reads, at
+// least 2 where it reads more than one; as fit in shared memory).  Any
+// other geometry is refused.
 extern "C" int support_count_int8_launch(const void* T, const void* C,
                                          const void* sizes, void* out, int N,
-                                         int M, int I, void* stream) {
-  const int grid_x = (M + kBM - 1) / kBM;
-  const int grid_y = std::min(65535, (N + kBN - 1) / kBN);
-  support_count_int8_kernel<<<dim3(grid_x, grid_y), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(T), static_cast<const int8_t*>(C),
-      static_cast<const int32_t*>(sizes), static_cast<int32_t*>(out), N, M, I);
-  return static_cast<int>(cudaGetLastError());
+                                         int M, int I, int wg, int n, int cs,
+                                         int stages, void* stream) {
+  if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{T, C, static_cast<const int*>(sizes), static_cast<int*>(out),
+               N, M, I, cs, stages, static_cast<cudaStream_t>(stream)};
+  if (wg == 1) {
+    switch (n) {
+      case 64: return launch<1, 64>(a);
+      case 128: return launch<1, 128>(a);
+      case 256: return launch<1, 256>(a);
+    }
+  } else if (wg == 2) {
+    switch (n) {
+      case 64: return launch<2, 64>(a);
+      case 128: return launch<2, 128>(a);
+      case 256: return launch<2, 256>(a);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch/`` at the repository root.  The file name carries a
-digest of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  :func:`build` starts one ``nvcc`` per
-missing library and waits for all of them, so a cold start costs one
-compile, not their sum.
+digest of the source, the ``csrc/*.cuh`` headers and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+:func:`build` starts one ``nvcc`` per missing library and waits for all
+of them, so a cold start costs one compile, not their sum.
 """
 from __future__ import annotations
 
@@ -36,10 +36,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is built."""
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    """Where the library for ``csrc/<name>.cu`` is built: named by a digest
+    of the source, the headers beside it and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,21 +1,25 @@
-"""Packed-popcount rule matching: the kernel serving runs by default.
+"""Packed-bit rule matching: the kernel serving runs by default.
 
 Replaces the reference's ``rule_scores_fused_pallas``
-(``repro/kernels/rule_match/fused.py``).  Items are packed 32 to a word
-(``pack_words``, shared with the support-count kernel) and
+(``repro/kernels/rule_match/fused.py:48``, its ``pallas_call`` at
+``:59``).  Items are packed 32 to a word (``pack_words``, shared with the
+support-count kernel) and
 
   score[b, r] = [ Σ_w popc(Qw[b, w] & Aw[r, w]) == sizes[r] ] · conf[r]
 
 is computed in one launch: the subset test, the ``== sizes`` filter and the
 confidence weight never leave the chip as an unweighted match matrix.
 
-Serving keeps the whole [B, R] score matrix (mining reduces over
-transactions instead), so the CUDA kernel is output-stationary: a block
-owns 64 rules, one per thread with its words in registers, and 8 queries
-whose words sit in shared memory (every thread reads the same word, a
-broadcast); each thread writes its own rule's column, so the stores
-coalesce and no atomics are needed.  At the serving shapes the popcounts,
-not the bytes, bound it.
+At the serving shapes (a bucket of 8 or 64 queries against the index, 32
+words a row) the work is small and the launch and one trip to memory set
+the time.  The CUDA kernel (``csrc/rule_match_packed.cu``) computes the
+AND-popcount on Hopper's binary tensor cores, ``wgmma`` m64nNk256 ``.b1
+.and.popc``: a k256 step reads 32 bytes of a row as an int8 k32 step does,
+so it is the int8 rule-match kernel (``csrc/rule_match_wgmma.cuh``: TMA
+loads onto an ``mbarrier``, 128-byte-swizzled descriptors, either operand
+on M, a cluster splitting long rows) with the b1 instruction and int32
+sizes.  :func:`geometry` picks the launch: the rules on M, one
+warpgroup of 64 a CTA, the batch as N.
 """
 from __future__ import annotations
 
@@ -25,7 +29,13 @@ import functools
 import torch
 
 from repro_torch.kernels import loader
+from repro_torch.kernels.rule_match import kernel as int8_kernel
+from repro_torch.kernels.rule_match.kernel import Geometry
 from repro_torch.kernels.support_count.fused import pack_words, popcount32
+
+# the wrapper's contract on the word axis: TMA rows of a multiple of 16
+# bytes
+WORD_MULTIPLE = 4
 
 # bytes of int64 temporaries per chunk of the plain version: the [B, R, W]
 # intermediate of a wide index would be gigabytes, so it walks R in slices
@@ -51,11 +61,32 @@ def rule_scores_packed_plain(Qw: torch.Tensor, Aw: torch.Tensor,
     return out
 
 
+def geometry(B: int, R: int, W: int,
+             sms: int = int8_kernel.H100_SMS) -> Geometry:
+    """The launch geometry for [B, W] query words against [R, W] rule
+    words: the rules on wgmma's M side, one warpgroup of 64 rules a CTA,
+    and N the batch rounded up to 8, 16, 32 or 64 (batches above 64 take
+    several query tiles).  With the b1 product that layout was the
+    fastest at both of serving's buckets and for wide indexes
+    (``tools/rule_match_packed_designs.py``).  A row of 32 words is one
+    128-byte slab, so serving takes no cluster; a longer row is split
+    over a cluster, doubling up to 8 while it divides the slabs evenly
+    and the CTAs fit in one wave."""
+    n = next(t for t in int8_kernel.QUERY_TILES if t >= min(B, 64))
+    tiles = -(-R // 64) * -(-B // n)
+    slabs = -(-4 * W // int8_kernel.SLAB)
+    cluster = 1
+    while (2 * cluster <= int8_kernel.CLUSTERS[-1]
+           and slabs % (2 * cluster) == 0 and 2 * cluster * tiles <= sms):
+        cluster *= 2
+    return Geometry(1, n, cluster)
+
+
 @functools.cache
 def _launcher():
     lib = loader.load("rule_match_packed")
     fn = lib.rule_match_packed_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -78,6 +109,21 @@ def _check_inputs(Qw, Aw, sizes, conf):
             raise ValueError(f"{name} is on {x.device}, Qw on {Qw.device}")
 
 
+def check_kernel_layout(Qw, Aw, sizes, conf) -> None:
+    """What the CUDA kernel asks of its inputs beyond their shapes and
+    types: W % 4 == 0 (TMA rows of a multiple of 16 bytes), and every
+    tensor contiguous and 16-byte aligned (TMA, and the epilogue's vector
+    loads of sizes and conf)."""
+    W = Qw.shape[1]
+    if W % WORD_MULTIPLE:
+        raise ValueError(f"the kernel's TMA rows need W % {WORD_MULTIPLE} "
+                         f"== 0: W={W}")
+    for name, x in (("Qw", Qw), ("Aw", Aw), ("sizes", sizes), ("conf", conf)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+
+
 def rule_scores_packed(Qw: torch.Tensor, Aw: torch.Tensor,
                        sizes: torch.Tensor,
                        conf: torch.Tensor) -> torch.Tensor:
@@ -85,8 +131,9 @@ def rule_scores_packed(Qw: torch.Tensor, Aw: torch.Tensor,
 
     Qw: [B, W] and Aw: [R, W] packed words (int32 bit patterns), sizes:
     [R] int32 (-1 on padded rows), conf: [R] float32.  A CUDA tensor goes
-    through the kernel (``W % 4 == 0``, contiguous, 16-byte aligned); a
-    CPU tensor through the plain version.
+    through the kernel (``W % 4 == 0``, contiguous, 16-byte aligned) at
+    :func:`geometry`'s launch geometry; a CPU tensor through the plain
+    version.
     """
     _check_inputs(Qw, Aw, sizes, conf)
     if Qw.device.type == "cpu":
@@ -95,21 +142,18 @@ def rule_scores_packed(Qw: torch.Tensor, Aw: torch.Tensor,
         raise ValueError(f"no rule_match_packed kernel for {Qw.device}")
     B, W = Qw.shape
     R = Aw.shape[0]
-    if W % 4:
-        raise ValueError(f"the kernel reads 4 words at a time: W={W}")
-    for name, x in (("Qw", Qw), ("Aw", Aw), ("sizes", sizes), ("conf", conf)):
-        if not x.is_contiguous() or (x.dim() == 2 and x.data_ptr() % 16):
-            raise ValueError(f"{name} must be contiguous"
-                             + (" and 16-byte aligned" if x.dim() == 2
-                                else ""))
+    check_kernel_layout(Qw, Aw, sizes, conf)
     out = torch.empty((B, R), dtype=torch.float32, device=Qw.device)
     if B == 0 or R == 0:
         return out
+    geom = geometry(B, R, W, int8_kernel._sms(Qw.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(Qw.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Qw.data_ptr(), Aw.data_ptr(), sizes.data_ptr(),
-                 conf.data_ptr(), out.data_ptr(), B, R, W, stream)
+                 conf.data_ptr(), out.data_ptr(), B, R, W,
+                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
+                 stream)
     loader.check(lib, err, "rule_match_packed launch")
     rule_scores_packed.launches += 1
     return out

@@ -1,33 +1,115 @@
 """Int8 tensor-core support counting: the pipeline's ``mxu`` variant.
 
 Replaces the reference's ``support_count_pallas``
-(``repro/kernels/support_count/kernel.py``), which runs the containment test
-as an int8 matmul on the TPU's matrix unit:
+(``repro/kernels/support_count/kernel.py:65``, its ``pallas_call`` at
+``:74``), which runs the containment test as an int8 matmul on the TPU's
+matrix unit:
 
   count[m] = Σ_t [ Σ_i T[t, i]·C[m, i] == sizes[m] ]
 
-On H100 the work is 2·N·M·I int8 operations against 1,979 dense TOP/s, and
-the bytes are one read of T and C; at the pipeline's shapes (a few thousand
-rows and candidates, ~1k items) that makes it operation-bound.  The kernel
-issues ``mma.sync`` m16n8k32 s8×s8→s32 on the tensor cores (exact integer
-accumulation), with the ``== sizes`` compare and the sum over transactions
-in the epilogue, so the [N, M] dot matrix is never written.  A block owns
-64 transactions × 128 candidates, stages 64-item slices of both in padded
-shared memory (bank-conflict-free fragment loads), and ``atomicAdd``s its
-per-candidate hit counts; integer atomics commute, so the result is exact.
-It uses no TMA or ``wgmma`` yet.
+On H100 a mining round gives it one transaction tile [3,128 × 1,024]
+against the round's candidates (M = 2,176 at k = 2, then 256, 128, 128).
+At k = 2 the 2·N·M·I int8 operations bound it (7.0 µs at 1,979 dense
+TOP/s); at M = 128 the bytes of T do (about 1 µs), and the launch, one
+trip to memory and filling the card's 132 SMs are what count.  The CUDA
+kernel (``csrc/support_count_int8.cu``) runs ``wgmma`` m64nNk32 s8 with
+the transactions on M and a tile of 64, 128 or 256 candidates on N, fed
+by TMA from a producer warp through a ring of ``mbarrier`` stages; the
+``== sizes`` compare and the sum over transactions happen in registers,
+with one ``atomicAdd`` a candidate a CTA (exact).  A small round takes
+narrower candidate tiles, so that its CTAs fill half the card; where
+even those leave most of it idle (few transactions), a tile's item axis
+is split over a cluster whose partial dots meet in distributed shared
+memory before the compare.  :func:`geometry` picks the tile, the
+warpgroups, the cluster and the ring for each shape.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import loader
 
-# the kernel stages the item axis 64 bytes at a time with 16-byte loads
+# the wrapper's contract on the item axis (the kernel's TMA loads need
+# rows of a multiple of 16 bytes and zero-fill a ragged last slab)
 ITEM_MULTIPLE = 64
+SLAB = 128                     # items a TMA box and a swizzled row hold
+TILE_WIDTHS = (64, 128, 256)   # wgmma N: candidates a tile
+CLUSTERS = (1, 2, 4, 8)        # CTAs splitting a tile's item axis
+MAX_STAGES = 8                 # slabs in flight in a CTA's ring
+MAX_GRID_Y = 65535             # transaction tiles a launch spreads over
+SMEM_LIMIT = 232448            # dynamic shared memory a CTA may use
+H100_SMS = 132
+_PAD = 4                       # ints of padding a row of partial dots
+
+
+class Geometry(NamedTuple):
+    """A launch of the kernel: consumer warpgroups a CTA (64 transactions
+    each, wgmma's M), candidates a tile (wgmma's N), the cluster size
+    splitting a tile's item axis, and the slabs a CTA keeps in flight."""
+    warpgroups: int
+    n: int
+    cluster: int
+    stages: int
+
+    def smem_bytes(self) -> int:
+        """The CTA's shared memory, as the kernel lays it out: the ring
+        (or, if larger, the partial dots a cluster adds), two barriers a
+        stage, and the tile's sizes and hits."""
+        rows = 64 * self.warpgroups
+        ring = self.stages * (rows + self.n) * SLAB
+        partials = rows * (self.n + _PAD) * 4
+        return 1024 + max(ring, partials) + 16 * self.stages + 8 * self.n
+
+    def describe(self, N: int, M: int, I: int) -> str:
+        rows = 64 * self.warpgroups
+        tiles = -(-N // rows) * -(-M // self.n)
+        return (f"tiles of {rows} transactions x {self.n} candidates, "
+                f"{tiles} tiles x cluster {self.cluster} = "
+                f"{tiles * self.cluster} CTAs of {128 * self.warpgroups + 32}"
+                f" threads, {self.stages} stages")
+
+
+def max_stages(warpgroups: int, n: int) -> int:
+    """The most stages whose ring fits in a CTA's shared memory."""
+    return max(s for s in range(1, MAX_STAGES + 1)
+               if Geometry(warpgroups, n, 1, s).smem_bytes() <= SMEM_LIMIT)
+
+
+def geometry(N: int, M: int, I: int, sms: int = H100_SMS) -> Geometry:
+    """The launch geometry for [N, I] transactions against [M, I]
+    candidates.
+
+    N (candidates a tile) is the smallest of 64, 128 and 256 that covers
+    M, or 256, halved (down to 64) while the tiles of 64 transactions
+    would fill less than half a wave of ``sms`` CTAs: more CTAs each
+    re-reading its transactions beat fewer that read more candidates
+    (``tools/support_count_int8_designs.py``).  A CTA takes 128
+    transactions (two warpgroups) once tiles of 64 would overfill a wave.
+    Where the tiles are still fewer than half a wave, the cluster
+    doubles, up to 8 and while it divides the 128-item slabs evenly, as
+    long as the CTAs fit in one wave (and every transaction tile has a
+    CTA of its own).  The ring holds every slab a CTA reads, up to 8 and
+    what shared memory allows.
+    """
+    n = next(w for w in TILE_WIDTHS if w >= min(M, TILE_WIDTHS[-1]))
+    while n > TILE_WIDTHS[0] and 2 * -(-N // 64) * -(-M // n) <= sms:
+        n //= 2
+    c_tiles = -(-M // n)
+    warpgroups = 2 if -(-N // 64) * c_tiles > sms else 1
+    t_tiles = -(-N // (64 * warpgroups))
+    tiles = t_tiles * c_tiles
+    slabs = -(-I // SLAB)
+    cluster = 1
+    while (2 * cluster <= CLUSTERS[-1] and slabs % (2 * cluster) == 0
+           and 2 * cluster * tiles <= sms and t_tiles <= MAX_GRID_Y):
+        cluster *= 2
+    per_cta = -(-slabs // cluster) * -(-t_tiles // min(t_tiles, MAX_GRID_Y))
+    stages = max(1, min(per_cta, max_stages(warpgroups, n)))
+    return Geometry(warpgroups, n, cluster, stages)
 
 
 def support_count_int8_plain(T: torch.Tensor, C: torch.Tensor,
@@ -48,7 +130,7 @@ def support_count_int8_plain(T: torch.Tensor, C: torch.Tensor,
 def _launcher():
     lib = loader.load("support_count_int8")
     fn = lib.support_count_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -69,13 +151,19 @@ def _check_inputs(T, C, sizes):
             raise ValueError(f"{name} is on {x.device}, T on {T.device}")
 
 
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def support_count_int8(T: torch.Tensor, C: torch.Tensor,
                        sizes: torch.Tensor) -> torch.Tensor:
     """Int8-dot support counts, ``[M]`` int32.
 
     T: [N, I] and C: [M, I] int8 0/1, sizes: [M] int32.  A CUDA tensor
     goes through the kernel (``I % 64 == 0``, contiguous, 16-byte
-    aligned); a CPU tensor through the plain version.
+    aligned) at :func:`geometry`'s launch geometry; a CPU tensor through
+    the plain version.
     """
     _check_inputs(T, C, sizes)
     if T.device.type == "cpu":
@@ -85,8 +173,8 @@ def support_count_int8(T: torch.Tensor, C: torch.Tensor,
     N, I = T.shape
     M = C.shape[0]
     if I % ITEM_MULTIPLE:
-        raise ValueError(f"the kernel stages {ITEM_MULTIPLE} items at a "
-                         f"time: I={I}")
+        raise ValueError(f"the kernel takes the item axis in multiples of "
+                         f"{ITEM_MULTIPLE}: I={I}")
     for name, x in (("T", T), ("C", C), ("sizes", sizes)):
         if not x.is_contiguous() or (x is not sizes and x.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous"
@@ -94,11 +182,13 @@ def support_count_int8(T: torch.Tensor, C: torch.Tensor,
     out = torch.zeros(M, dtype=torch.int32, device=T.device)
     if N == 0 or M == 0:
         return out
+    geom = geometry(N, M, I, _sms(T.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(),
-                 out.data_ptr(), N, M, I, stream)
+                 out.data_ptr(), N, M, I, geom.warpgroups, geom.n,
+                 geom.cluster, geom.stages, stream)
     loader.check(lib, err, "support_count_int8 launch")
     support_count_int8.launches += 1
     return out

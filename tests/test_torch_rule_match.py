@@ -294,3 +294,65 @@ def test_int8_geometry_fills_one_wave_without_empty_slabs(sms):
                 assert g.cluster in kernel.CLUSTERS
                 assert g.cluster <= -(-I // kernel.SLAB)
                 assert g.cluster == 1 or tiles * g.cluster <= sms
+
+
+# (B, R, W) -> the packed kernel's launch on 132 SMs and its CTA count:
+# the rules on M at both serving buckets and for the wide index (one
+# slab a row, no cluster); longer rows split over a cluster that divides
+# their slabs while the CTAs fit in one wave
+PACKED_GEOMETRIES = {
+    (64, 896, 32): (kernel.Geometry(1, 64, 1), 14),
+    (8, 896, 32): (kernel.Geometry(1, 8, 1), 14),
+    (64, 16384, 32): (kernel.Geometry(1, 64, 1), 256),
+    (5, 333, 240): (kernel.Geometry(1, 8, 8), 48),
+    (17, 333, 48): (kernel.Geometry(1, 32, 2), 12),
+    (37, 333, 96): (kernel.Geometry(1, 64, 1), 6),
+    (65, 4000, 64): (kernel.Geometry(1, 64, 1), 126),
+}
+
+
+@pytest.mark.parametrize("shape", list(PACKED_GEOMETRIES), ids=str)
+def test_packed_launch_geometry(shape):
+    want, ctas = PACKED_GEOMETRIES[shape]
+    geom = fused.geometry(*shape)
+    assert geom == want
+    assert f"= {ctas} CTAs" in geom.describe(shape[0], shape[1], 4 * shape[2])
+
+
+@pytest.mark.parametrize("sms", [8, 132])
+def test_packed_geometry_fits(sms):
+    """Over ragged shapes: the rules on M with one warpgroup and N
+    covering the batch (or 64), a cluster that divides the row's 128-byte
+    slabs and, above 1, keeps one wave."""
+    for B in (1, 7, 8, 9, 31, 33, 64, 65, 200):
+        for R in (1, 64, 127, 896, 5000, 16384):
+            for W in (4, 12, 32, 36, 64, 96, 256):
+                g = fused.geometry(B, R, W, sms)
+                assert (g.rules_on_m, g.warpgroups) == (True, 1)
+                assert g.n in kernel.QUERY_TILES and g.n >= min(B, 64)
+                assert g.n == 8 or g.n // 2 < min(B, 64)
+                slabs = -(-4 * W // kernel.SLAB)
+                assert g.cluster in kernel.CLUSTERS
+                assert slabs % g.cluster == 0
+                tiles = -(-R // 64) * -(-B // g.n)
+                assert g.cluster == 1 or tiles * g.cluster <= sms
+
+
+def test_packed_kernel_layout_checks():
+    """What the CUDA kernel asks beyond shapes and types, checked before a
+    launch: W % 4 == 0, and contiguous 16-byte-aligned tensors (sizes
+    and conf too: the epilogue reads them four at a time)."""
+    Qw = torch.zeros((8, 32), dtype=torch.int32)
+    Aw = torch.zeros((64, 32), dtype=torch.int32)
+    sizes = torch.zeros(64, dtype=torch.int32)
+    conf = torch.zeros(64)
+    fused.check_kernel_layout(Qw, Aw, sizes, conf)
+    with pytest.raises(ValueError, match="W % 4"):
+        fused.check_kernel_layout(Qw[:, :30], Aw[:, :30], sizes, conf)
+    with pytest.raises(ValueError, match="aligned"):
+        fused.check_kernel_layout(Qw, Aw, torch.zeros(65, dtype=torch.int32)
+                                  [1:], conf)
+    with pytest.raises(ValueError, match="aligned"):
+        fused.check_kernel_layout(Qw, Aw, sizes, torch.zeros(65)[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.check_kernel_layout(Qw, Aw.t().contiguous().t(), sizes, conf)

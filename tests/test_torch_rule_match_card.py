@@ -1,4 +1,5 @@
-"""The port's int8 rule-match kernel on the card, against its plain version.
+"""The port's rule-match kernels on the card (int8, and packed bits on the
+binary tensor cores), against their plain versions.
 
 These tests need an NVIDIA card (marked ``cuda``; each skips where none is
 present) and import neither jax nor the reference, so they run on a
@@ -7,7 +8,8 @@ machine with PyTorch for CUDA alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_rule_match_card.py
 
 The function is exact (an integer dot compared with integral sizes), so
-the kernel must equal ``rule_scores_int8_plain`` bit for bit.  Inputs are
+each kernel must equal its plain version (``rule_scores_int8_plain``,
+``rule_scores_packed_plain``) bit for bit.  Inputs are
 drawn with numpy from a seed: baskets of density 0.3, antecedents of 1-3
 random items (one empty antecedent, which every basket matches) and
 random confidences.  Each call must add exactly one launch.  The launch
@@ -19,7 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.rule_match import kernel  # noqa: E402
+from repro_torch.kernels.rule_match import fused, kernel  # noqa: E402
+from repro_torch.kernels.support_count.fused import pack_words  # noqa: E402
 
 
 @pytest.fixture
@@ -125,3 +128,76 @@ def test_int8_kernel_equals_plain_version_at_every_geometry(card, geom):
     shape = _shape_for(geom, sms)
     assert kernel.geometry(*shape, sms) == geom
     _held(*_inputs(*shape, 5, card))
+
+
+# ---- the packed kernel: the same launch geometries on rows of 4W bytes --
+
+def _packed_inputs(B, R, W, seed, device):
+    """``_inputs`` over 32W items, packed into W words a row."""
+    Q, A, sizes, conf = _inputs(B, R, 32 * W, seed, device)
+    return pack_words(Q), pack_words(A), sizes.to(torch.int32), conf
+
+
+def _held_packed(Qw, Aw, sizes, conf):
+    launches = fused.rule_scores_packed.launches
+    got = fused.rule_scores_packed(Qw, Aw, sizes, conf)
+    want = fused.rule_scores_packed_plain(Qw, Aw, sizes, conf)
+    torch.cuda.synchronize()
+    assert fused.rule_scores_packed.launches == launches + 1
+    assert torch.equal(got, want)
+    return want
+
+
+# (B, R, W): the serving shape at buckets 8 and 64 and the wide index (32
+# words a row); ragged batches and rule counts as for the int8 kernel;
+# rows of 4 and 12 words (less than a slab) and of 36 and 68 (a ragged
+# last slab)
+PACKED_CASES = ([(8, 896, 32), (64, 896, 32), (64, 16_384, 32)]
+                + [(B, 333, 32) for B in (1, 5, 9, 65)]
+                + [(64, R, 32) for R in (1, 127, 129, 333)]
+                + [(64, 333, W) for W in (4, 12, 36, 68)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,W", PACKED_CASES)
+def test_packed_kernel_equals_plain_version_on_the_card(card, B, R, W):
+    want = _held_packed(*_packed_inputs(B, R, W, B + R + W, card))
+    assert (want > 0).any()
+
+
+@pytest.mark.cuda
+def test_packed_kernel_padding_rows_never_match(card):
+    Qw = _packed_inputs(8, 1, 32, 0, card)[0]
+    Aw = torch.zeros((128, 32), dtype=torch.int32, device=card)
+    sizes = torch.full((128,), -1, dtype=torch.int32, device=card)
+    want = _held_packed(Qw, Aw, sizes, torch.ones(128, device=card))
+    assert not want.any()
+
+
+# every launch geometry that fused.geometry can pick: the rules on M, one
+# warpgroup, each N and each cluster
+PACKED_REACHABLE = [kernel.Geometry(1, n, c) for n in kernel.QUERY_TILES
+                    for c in kernel.CLUSTERS]
+
+
+def _packed_shape_for(geom, sms):
+    """A (B, R, W) for which fused.geometry picks ``geom``: the batch just
+    above the next smaller N, 333 rules (6 tiles) and a row of as many
+    128-byte slabs as the cluster has CTAs, the last one half full."""
+    B = {8: 5, 16: 9, 32: 17, 64: 37}[geom.n]
+    return B, 333, 32 * geom.cluster - 16
+
+
+@pytest.mark.parametrize("sms", [114, kernel.H100_SMS])
+@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_geom_id)
+def test_every_reachable_geometry_has_a_packed_shape(geom, sms):
+    assert fused.geometry(*_packed_shape_for(geom, sms), sms) == geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_geom_id)
+def test_packed_kernel_equals_plain_version_at_every_geometry(card, geom):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shape = _packed_shape_for(geom, sms)
+    assert fused.geometry(*shape, sms) == geom
+    _held_packed(*_packed_inputs(*shape, 5, card))
