@@ -3,8 +3,9 @@ round's shape, beside the kernel it replaced and ``torch._int_mm``.
 
 ``src/repro_torch/csrc/support_count_int8.cu`` takes a geometry at launch:
 consumer warpgroups a CTA (64 transactions each), candidates a tile (64,
-128 or 256), a cluster of 1, 2, 4 or 8 CTAs splitting the item axis, and
-the slabs its ring keeps in flight.  ``kernel.geometry`` picks one a shape.
+128 or 256), a cluster of 1, 2, 4 or 8 CTAs splitting the item axis (or
+else of 2 or 4 transaction tiles sharing one multicast candidate tile),
+and the slabs its ring keeps in flight.  ``kernel.geometry`` picks one a shape.
 This script launches every geometry at the dense mine's four counting
 rounds, one transaction tile [3,128 x 1,024] against M = 2,176, 256, 128
 and 128 candidates (so three shapes), holds each launch exactly equal to
@@ -52,7 +53,8 @@ def launch(T, C, sizes, geom):
     out = torch.zeros(C.shape[0], dtype=torch.int32, device=T.device)
     err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(), out.data_ptr(),
              N, C.shape[0], I, geom.warpgroups, geom.n, geom.cluster,
-             geom.stages, torch.cuda.current_stream().cuda_stream)
+             geom.multicast, geom.stages,
+             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{geom}: CUDA error {err}")
     return out
@@ -90,7 +92,8 @@ def geometries(M, sms):
     """Every geometry the kernel takes at [N_TX, ITEMS] x [M, ITEMS]: each
     warpgroup count, tile width and cluster (one that divides the slabs,
     and, above 1, with no more CTAs than two waves), with the ring
-    ``geometry`` would give it and with 2 stages."""
+    ``geometry`` would give it and with 2 stages; and without a cluster,
+    each candidate tile multicast to 2 and 4 transaction tiles."""
     slabs = -(-ITEMS // kernel.SLAB)
     out = []
     for wg in (1, 2):
@@ -102,6 +105,9 @@ def geometries(M, sms):
                 full = min(slabs // cs, kernel.max_stages(wg, n))
                 for stages in sorted({full, min(2, full)}):
                     out.append(kernel.Geometry(wg, n, cs, stages))
+                    if cs == 1:
+                        out += [kernel.Geometry(wg, n, 1, stages, mc)
+                                for mc in kernel.MULTICASTS[1:]]
     return out
 
 
@@ -159,12 +165,11 @@ def main(argv=None) -> int:
     results = {}
     for M in ROUND_M:
         T, C, sizes = inputs(M, M)
-        Ti, Ci = T, C
         picked = kernel.geometry(N_TX, M, ITEMS, sms)
         want = kernel.support_count_int8_plain(T, C, sizes)
 
-        def int_mm(Ti=Ti, Ci=Ci, sizes=sizes):
-            dots = torch._int_mm(Ti, Ci.t())
+        def int_mm(T=T, C=C, sizes=sizes):
+            dots = torch._int_mm(T, C.t())
             return (dots == sizes[None, :]).sum(dim=0, dtype=torch.int32)
         designs = {g.describe(N_TX, M, ITEMS)
                    + (" [picked]" if g == picked else ""):
