@@ -1216,10 +1216,11 @@ def main() -> int:
         print(f"{k}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
               f"library {v['library_ms']} ms, bound {v['bound_ms']:.5f} ms "
               f"({by})")
+    cuda_core_ms = N * M * W / popc_per_s * 1e3
+    timing["packed"]["cuda_core_bound_ms"] = cuda_core_ms
     print(f"packed on CUDA cores' popcounts ({props.multi_processor_count} "
           f"SMs at {clock_hz / 1e6:.0f} MHz) would take at least "
-          f"{N * M * W / popc_per_s * 1e3:.4f} ms")
-    timing["packed"]["cuda_core_bound_ms"] = N * M * W / popc_per_s * 1e3
+          f"{cuda_core_ms:.4f} ms")
 
     # the int8 kernel at each round's shape, beside _int_mm and its bound
     timing["int8"]["rounds"] = {}

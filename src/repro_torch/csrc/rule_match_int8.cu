@@ -12,15 +12,16 @@
 // At the serving shape [64 x 896 x 1,024] the bytes take 0.36 us, so what
 // sets the time is latency: the launch, one trip to memory, the epilogue.
 //
-// Design (the kernel is rule_match_wgmma.cuh's, which rule_match_packed.cu
-// runs with wgmma's b1 AND-popcount in place of the s8 product).
-// - wgmma m64nNk32 s8 x s8 -> s32 reads both operands from shared memory
-//   by descriptor as rows contiguous in the item axis (K-major), which is
-//   how the antecedents and the queries are stored, so either can be the
-//   M operand (64 rows a warpgroup) and the other the N; the sum is exact
-//   integer arithmetic.  wgmma, not mma.sync, because it needs no fragment
-//   loads: a warpgroup's 64 x N tile over 128 items is four instructions.
-// - Two layouts, each the faster at one of serving's two buckets
+// Design: the kernel is rule_match_wgmma.cuh's (wgmma m64nNk32 s8 x s8 ->
+// s32 on K-major operands, so either can be M; TMA loads of 128-item
+// slabs onto one mbarrier a slab, all of a CTA's slabs at once up to I =
+// 1,024; a tile's item axis split over a cluster whose int32 partials meet
+// in distributed shared memory), which rule_match_packed.cu runs with the
+// b1 AND-popcount in place of the s8 product.  wgmma, not mma.sync,
+// because it needs no fragment loads: a warpgroup's 64 x N tile over 128
+// items is four instructions.  The launch geometry is
+// kernels/rule_match/kernel.py's geometry():
+// - two layouts, each the faster at one of serving's two buckets
 //   (tools/rule_match_int8_designs.py, medians of 9 rounds, NVIDIA H100
 //   80GB HBM3, 700.00 W):
 //   * queries on M and 32-rule tiles as N, when the batch is over 32 (a
@@ -29,28 +30,13 @@
 //   * otherwise rules on M and the batch, rounded up to 8, 16, 32 or 64,
 //     as N, so that a bucket of 8 fills the instruction with no rows of
 //     zeros: 0.00457 ms at [8 x 896 x 1,024], against 0.00517 with the
-//     queries on M.
-// - Loads: one thread issues TMA loads of 128-item slabs (128-byte rows,
-//   128-byte swizzle) of both operands onto one mbarrier a slab, all of a
-//   CTA's slabs at once when they fit in its ring of 8 stages (I <= 1,024
-//   at one CTA a tile), so one memory latency is exposed, not I / 64.  A
-//   longer item axis cycles the ring, refilled as each slab is consumed.
-//   TMA's zero fill covers ragged B, R and I (I % 64 == 0 is enough).
-// - Filling the card: a tile's item axis is split over a cluster of `cs`
-//   CTAs (1, 2, 4 or 8).  Each CTA sums its slabs into int32 partials,
-//   written to its own shared memory; after a cluster barrier each CTA
-//   adds the cluster's partials for its 1/cs share of the tile through
-//   distributed shared memory, compares, weights and stores it.  Exact,
-//   and no atomics.  The shared operand is not multicast: each CTA of a
-//   cluster reads another slice of the items.  At the serving shape 28
-//   tiles x 4 = 112 CTAs each read 24 KB; at bucket 8, 14 x 8 = 112 CTAs
-//   read 9 KB each.
-// - Wide indexes: rules on M, two warpgroups a CTA (128 rules, one 64 x N
-//   product each) sharing one query block, so each antecedent byte is read
-//   once and the 64 queries once per 128 rules; 16,384 rules are 128 CTAs,
-//   one wave.
-// - The launch geometry (layout, warpgroups, N, cs) is the caller's:
-//   kernels/rule_match/kernel.py's geometry() picks it.
+//     queries on M;
+// - filling the card: at the serving shape 28 tiles x a cluster of 4 =
+//   112 CTAs each read 24 KB; at bucket 8, 14 x 8 = 112 CTAs read 9 KB
+//   each;
+// - wide indexes: rules on M, two warpgroups a CTA (128 rules) sharing one
+//   query block, so each antecedent byte is read once; 16,384 rules are
+//   128 CTAs, one wave.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.0052 ms at
 // the serving shape, 0.0047 at bucket 8 and 0.0092 at 16,384 rules,

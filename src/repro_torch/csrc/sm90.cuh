@@ -3,8 +3,7 @@
 // and support_count_int8.cu.
 //
 // - mbarriers and TMA: one thread copies a 2-d box of a tensor map into
-//   shared memory (or into every CTA of a cluster) and the copy completes
-//   its bytes on an mbarrier;
+//   shared memory and the copy completes its bytes on an mbarrier;
 // - wgmma operand descriptors for K-major tiles in 128-byte swizzle: rows
 //   of 128 bytes (a TMA box 128 bytes wide), 8-row groups 1,024 bytes
 //   apart;
@@ -68,35 +67,6 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// the same box written to the same shared-memory offset of every CTA of
-// the cluster in `mask`, completing its bytes on each one's barrier at
-// `bar`'s offset
-__device__ __forceinline__ void tma_load_multicast(uint32_t dst,
-                                                   const CUtensorMap* map,
-                                                   uint32_t bar, int c0,
-                                                   int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
-      "h"(mask)
-      : "memory");
-}
-
-// arrive on the barrier at `bar`'s offset in the cluster's CTA `rank`
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(bar), "r"(rank));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
       : "memory");
 }
 

@@ -46,7 +46,8 @@
 //   compares and counts.  At the mining rounds the narrower tiles won:
 //   0.0096 / 0.0087 ms at M = 256 / 128 against 0.0115 / 0.0099 for the
 //   best cluster (tools/support_count_int8_designs.py, medians of 5
-//   rounds).
+//   rounds); at a short tile [512 x 1,024] against 128 candidates (16
+//   tiles) a cluster of 8 reads 0.0086 against 0.0087 without one.
 // - The geometry (warpgroups, N, cluster, stages) is the caller's:
 //   kernels/support_count/kernel.py's geometry() picks it for each shape.
 //
@@ -57,8 +58,11 @@
 // the mma.sync kernel this one replaced.  At k = 2 it runs at 4.3x its
 // operations bound: its 225 CTAs read T 9 times and C 25 times from L2,
 // 86 MB in all, about 12 KB a million products, more than L2 feeds the
-// tensor cores at their rate; multicasting a tile's candidates over a
-// cluster of transaction tiles is what could cut that.
+// tensor cores at their rate.  Multicasting a candidate tile over a
+// cluster of 2 or 4 transaction tiles (TMA .multicast::cluster, each stage
+// released by every CTA's consumers) cut those bytes but ran 1.5-1.9x
+// slower at every round, the cluster's CTAs waiting on each other's
+// stages, and was dropped.
 //
 // The caller zeroes `out`; T and C are contiguous and 16-byte aligned with
 // I % 16 == 0 (the wrapper asks I % 64 == 0).
@@ -115,25 +119,16 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
   int* s_sizes = reinterpret_cast<int*>(tile + region + 16 * stages);
   int* s_hits = s_sizes + N;
 
-  // a cluster is either cs CTAs along x splitting a tile's item axis, or
-  // mc CTAs along y, consecutive transaction tiles that share one
-  // candidate tile, each loading 1/mc of its rows for all of them
   cg::cluster_group cluster = cg::this_cluster();
-  uint32_t cdim_x, cdim_y;
-  asm("mov.u32 %0, %%cluster_nctaid.x;\n" : "=r"(cdim_x));
-  asm("mov.u32 %0, %%cluster_nctaid.y;\n" : "=r"(cdim_y));
-  const int cs = static_cast<int>(cdim_x);
-  const int mc = static_cast<int>(cdim_y);
+  const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int c0 = (blockIdx.x / cs) * N;
   // this rank's slabs of the item axis, and this CTA's transaction tiles
-  // (with mc > 1 exactly one, past n_tx for the grid's padding)
   const int slabs = (I + kSlab - 1) / kSlab;
-  const int s_begin = cs > 1 ? rank * slabs / cs : 0;
-  const int count = cs > 1 ? (rank + 1) * slabs / cs - s_begin : slabs;
+  const int s_begin = rank * slabs / cs;
+  const int count = (rank + 1) * slabs / cs - s_begin;
   const int t_tiles = (n_tx + T::kRows - 1) / T::kRows;
-  const int iters = mc > 1 ? 1
-                    : static_cast<int>(blockIdx.y) < t_tiles
+  const int iters = static_cast<int>(blockIdx.y) < t_tiles
                         ? (t_tiles - 1 - blockIdx.y) / gridDim.y + 1
                         : 0;
 
@@ -144,15 +139,11 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4 * WG * mc);   // every CTA's consumers
+      mbar_init(empty + 8 * s, 4 * WG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (mc > 1) {
-    cluster.sync();              // peers' barriers exist before any load
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool consumer = warp < 4 * WG;
@@ -175,28 +166,12 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
         const uint32_t dst = base + s * T::kStageBytes;
         mbar_expect_tx(full + 8 * s, T::kStageBytes);
         tma_load(dst, &tm_t, full + 8 * s, col, row0);
-        if (mc == 1) {
-          tma_load(dst + T::kTBytes, &tm_c, full + 8 * s, col, c0);
-        } else {                 // this rank's rows of C, into every CTA
-          const int part = N / mc;
-          tma_load_multicast(dst + T::kTBytes + rank * part * kSlab, &tm_c,
-                             full + 8 * s, col, c0 + rank * part,
-                             static_cast<uint16_t>((1u << mc) - 1));
-        }
+        tma_load(dst + T::kTBytes, &tm_c, full + 8 * s, col, c0);
       }
     }
   } else {
     // ---- consumers: each warpgroup its 64 transactions -----------------
     const int wg = warp / 4;
-    // a stage is free once every consumer warp of every CTA writing into
-    // it is done with it
-    auto release = [&](int s) {
-      if (mc == 1) {
-        mbar_arrive(empty + 8 * s);
-      } else {
-        for (int r = 0; r < mc; ++r) mbar_arrive_cluster(empty + 8 * s, r);
-      }
-    };
     for (int it = 0; it < iters; ++it) {
 #pragma unroll
       for (int e = 0; e < N / 2; ++e) acc[e] = 0;
@@ -214,11 +189,12 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
         wgmma_commit();
         wgmma_wait<1>();         // the previous slab's products are done
         fence_regs(acc);
-        if (k > 0 && lane == 0) release((i - 1) % stages);
+        if (k > 0 && lane == 0) mbar_arrive(empty + 8 * ((i - 1) % stages));
       }
       wgmma_wait_all();
       fence_regs(acc);
-      if (count > 0 && lane == 0) release((it * count + count - 1) % stages);
+      if (count > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((it * count + count - 1) % stages));
       if (cs == 1) {
         // compare in registers; rows past n_tx are zero-filled, masked
         const int r = (blockIdx.y + it * gridDim.y) * T::kRows + wg * 64 +
@@ -300,9 +276,7 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
   __syncthreads();
   for (int c = threadIdx.x; c < N; c += blockDim.x)
     if (c0 + c < M && s_hits[c]) atomicAdd(out + c0 + c, s_hits[c]);
-  // no rank leaves while others read its shared memory or arrive on its
-  // barriers
-  if (cs > 1 || mc > 1) cluster.sync();
+  if (cs > 1) cluster.sync();    // no rank leaves while others read it
 }
 
 struct Args {
@@ -310,7 +284,7 @@ struct Args {
   const void* C;
   const int* sizes;
   int* out;
-  int N, M, I, cs, mc, stages;
+  int N, M, I, cs, stages;
   cudaStream_t stream;
 };
 
@@ -321,14 +295,11 @@ int launch(const Args& a) {
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_t, tm_c;
   if (!encode_map(encode, &tm_t, a.T, a.N, a.I, Tl::kRows) ||
-      !encode_map(encode, &tm_c, a.C, a.M, a.I, N / a.mc))
+      !encode_map(encode, &tm_c, a.C, a.M, a.I, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const int t_tiles = (a.N + Tl::kRows - 1) / Tl::kRows;
-  // a multicast cluster takes one tile a CTA, its grid padded to whole
-  // clusters; the cluster epilogue takes one tile a CTA
-  const int grid_y = a.mc > 1 ? (t_tiles + a.mc - 1) / a.mc * a.mc
-                     : t_tiles < 65535 ? t_tiles : 65535;
-  if (grid_y > 65535 || (a.cs > 1 && grid_y < t_tiles))
+  const int grid_y = t_tiles < 65535 ? t_tiles : 65535;
+  if (a.cs > 1 && grid_y < t_tiles)   // the cluster epilogue: one tile a CTA
     return static_cast<int>(cudaErrorInvalidValue);
   const int slabs = (a.I + kSlab - 1) / kSlab;
   const int per_cta = (slabs + a.cs - 1) / a.cs *
@@ -353,7 +324,7 @@ int launch(const Args& a) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = a.cs;
-  attr[0].val.clusterDim.y = a.mc;
+  attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -370,20 +341,18 @@ int launch(const Args& a) {
 // (kernels/support_count/kernel.py's geometry()): wg in {1, 2} consumer
 // warpgroups (64 transactions each), n in {64, 128, 256} candidates a
 // tile, cs in {1, 2, 4, 8} CTAs splitting the item axis (with more than
-// one only where every transaction tile has its own CTA), or else mc in
-// {1, 2, 4} transaction tiles multicasting one candidate tile, and up to
+// one only where every transaction tile has its own CTA), and up to
 // `stages` slabs in flight (at most 8 and as many as a CTA reads, at
 // least 2 where it reads more than one; as fit in shared memory).  Any
 // other geometry is refused.
 extern "C" int support_count_int8_launch(const void* T, const void* C,
                                          const void* sizes, void* out, int N,
                                          int M, int I, int wg, int n, int cs,
-                                         int mc, int stages, void* stream) {
-  if ((cs != 1 && cs != 2 && cs != 4 && cs != 8) ||
-      (mc != 1 && mc != 2 && mc != 4) || (cs > 1 && mc > 1))
+                                         int stages, void* stream) {
+  if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{T, C, static_cast<const int*>(sizes), static_cast<int*>(out),
-               N, M, I, cs, mc, stages, static_cast<cudaStream_t>(stream)};
+               N, M, I, cs, stages, static_cast<cudaStream_t>(stream)};
   if (wg == 1) {
     switch (n) {
       case 64: return launch<1, 64>(a);

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import loader
+from repro_torch.kernels import loader, sm_count
 from repro_torch.kernels.rule_match import kernel as int8_kernel
 from repro_torch.kernels.rule_match.kernel import Geometry
 from repro_torch.kernels.support_count.fused import pack_words, popcount32
@@ -146,7 +146,7 @@ def rule_scores_packed(Qw: torch.Tensor, Aw: torch.Tensor,
     out = torch.empty((B, R), dtype=torch.float32, device=Qw.device)
     if B == 0 or R == 0:
         return out
-    geom = geometry(B, R, W, int8_kernel._sms(Qw.device.index or 0))
+    geom = geometry(B, R, W, sm_count(Qw.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(Qw.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import loader
+from repro_torch.kernels import loader, sm_count
 from repro_torch.kernels.rule_match.ref import rule_scores_ref
 from repro_torch.kernels.support_count.ref import MAX_EXACT_ITEMS
 
@@ -132,11 +132,6 @@ def _check_inputs(Q, A, sizes, conf):
             raise ValueError(f"{name} is on {x.device}, Q on {Q.device}")
 
 
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
                      conf: torch.Tensor) -> torch.Tensor:
     """Int8-dot rule scores, ``[B, R]`` float32.
@@ -166,7 +161,7 @@ def rule_scores_int8(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
     out = torch.empty((B, R), dtype=torch.float32, device=Q.device)
     if B == 0 or R == 0:
         return out
-    geom = geometry(B, R, I, _sms(Q.device.index or 0))
+    geom = geometry(B, R, I, sm_count(Q.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import loader
+from repro_torch.kernels import loader, sm_count
 
 # the wrapper's contract on the item axis (the kernel's TMA loads need
 # rows of a multiple of 16 bytes and zero-fill a ragged last slab)
@@ -39,7 +39,6 @@ ITEM_MULTIPLE = 64
 SLAB = 128                     # items a TMA box and a swizzled row hold
 TILE_WIDTHS = (64, 128, 256)   # wgmma N: candidates a tile
 CLUSTERS = (1, 2, 4, 8)        # CTAs splitting a tile's item axis
-MULTICASTS = (1, 2, 4)         # transaction tiles sharing a candidate tile
 MAX_STAGES = 8                 # slabs in flight in a CTA's ring
 MAX_GRID_Y = 65535             # transaction tiles a launch spreads over
 SMEM_LIMIT = 232448            # dynamic shared memory a CTA may use
@@ -50,14 +49,11 @@ _PAD = 4                       # ints of padding a row of partial dots
 class Geometry(NamedTuple):
     """A launch of the kernel: consumer warpgroups a CTA (64 transactions
     each, wgmma's M), candidates a tile (wgmma's N), the cluster size
-    splitting a tile's item axis, the slabs a CTA keeps in flight, and
-    the transaction tiles a cluster of that many CTAs gives one candidate
-    tile, loaded once and multicast (with ``cluster`` 1)."""
+    splitting a tile's item axis, and the slabs a CTA keeps in flight."""
     warpgroups: int
     n: int
     cluster: int
     stages: int
-    multicast: int = 1
 
     def smem_bytes(self) -> int:
         """The CTA's shared memory, as the kernel lays it out: the ring
@@ -70,15 +66,11 @@ class Geometry(NamedTuple):
 
     def describe(self, N: int, M: int, I: int) -> str:
         rows = 64 * self.warpgroups
-        t_tiles = -(-N // rows)
-        t_tiles += -t_tiles % self.multicast
-        tiles = t_tiles * -(-M // self.n)
-        shared = (f", candidates multicast to {self.multicast} transaction "
-                  "tiles" if self.multicast > 1 else "")
+        tiles = -(-N // rows) * -(-M // self.n)
         return (f"tiles of {rows} transactions x {self.n} candidates, "
                 f"{tiles} tiles x cluster {self.cluster} = "
                 f"{tiles * self.cluster} CTAs of {128 * self.warpgroups + 32}"
-                f" threads, {self.stages} stages{shared}")
+                f" threads, {self.stages} stages")
 
 
 def max_stages(warpgroups: int, n: int) -> int:
@@ -138,7 +130,7 @@ def support_count_int8_plain(T: torch.Tensor, C: torch.Tensor,
 def _launcher():
     lib = loader.load("support_count_int8")
     fn = lib.support_count_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -157,11 +149,6 @@ def _check_inputs(T, C, sizes):
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if x.device != T.device:
             raise ValueError(f"{name} is on {x.device}, T on {T.device}")
-
-
-@functools.cache
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def support_count_int8(T: torch.Tensor, C: torch.Tensor,
@@ -190,13 +177,13 @@ def support_count_int8(T: torch.Tensor, C: torch.Tensor,
     out = torch.zeros(M, dtype=torch.int32, device=T.device)
     if N == 0 or M == 0:
         return out
-    geom = geometry(N, M, I, _sms(T.device.index or 0))
+    geom = geometry(N, M, I, sm_count(T.device.index or 0))
     lib, fn = _launcher()
     with torch.cuda.device(T.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(),
                  out.data_ptr(), N, M, I, geom.warpgroups, geom.n,
-                 geom.cluster, geom.multicast, geom.stages, stream)
+                 geom.cluster, geom.stages, stream)
     loader.check(lib, err, "support_count_int8 launch")
     support_count_int8.launches += 1
     return out

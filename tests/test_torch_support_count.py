@@ -195,15 +195,15 @@ def test_loader_names_libraries_by_source_and_needs_nvcc(monkeypatch,
 # short corpus splits its few tiles' items over a cluster where the slabs
 # divide evenly; a tall tile count takes two warpgroups and no cluster
 SC_GEOMETRIES = {
-    (3128, 2176, 1024): ((2, 256, 1, 4, 1), 225),
-    (3128, 256, 1024): ((1, 128, 1, 8, 1), 98),
-    (3128, 128, 1024): ((1, 64, 1, 8, 1), 98),
-    (3128, 512, 1024): ((1, 256, 1, 5, 1), 98),
-    (77, 200, 128): ((1, 64, 1, 1, 1), 8),
-    (1000, 257, 1024): ((1, 64, 1, 8, 1), 80),
-    (300, 37, 960): ((1, 64, 8, 1, 1), 40),
-    (300, 37, 384): ((1, 64, 1, 3, 1), 5),
-    (100_000, 128, 1024): ((2, 128, 1, 7, 1), 782),
+    (3128, 2176, 1024): ((2, 256, 1, 4), 225),
+    (3128, 256, 1024): ((1, 128, 1, 8), 98),
+    (3128, 128, 1024): ((1, 64, 1, 8), 98),
+    (3128, 512, 1024): ((1, 256, 1, 5), 98),
+    (77, 200, 128): ((1, 64, 1, 1), 8),
+    (1000, 257, 1024): ((1, 64, 1, 8), 80),
+    (300, 37, 960): ((1, 64, 8, 1), 40),
+    (300, 37, 384): ((1, 64, 1, 3), 5),
+    (100_000, 128, 1024): ((2, 128, 1, 7), 782),
 }
 
 

@@ -3,13 +3,15 @@ round's shape, beside the kernel it replaced and ``torch._int_mm``.
 
 ``src/repro_torch/csrc/support_count_int8.cu`` takes a geometry at launch:
 consumer warpgroups a CTA (64 transactions each), candidates a tile (64,
-128 or 256), a cluster of 1, 2, 4 or 8 CTAs splitting the item axis (or
-else of 2 or 4 transaction tiles sharing one multicast candidate tile),
-and the slabs its ring keeps in flight.  ``kernel.geometry`` picks one a shape.
+128 or 256), a cluster of 1, 2, 4 or 8 CTAs splitting the item axis, and
+the slabs its ring keeps in flight.  ``kernel.geometry`` picks one a shape.
 This script launches every geometry at the dense mine's four counting
 rounds, one transaction tile [3,128 x 1,024] against M = 2,176, 256, 128
-and 128 candidates (so three shapes), holds each launch exactly equal to
-the plain version, and times them in turns over several rounds (each
+and 128 candidates (so three shapes), and at a short tile [512 x 1,024]
+against 128 candidates (the tile of a corpus cut into more pieces, or of
+a micro-batch: there 64-wide tiles make 16 CTAs, and ``geometry`` splits
+the item axis over a cluster), holds each launch exactly equal to the
+plain version, and times them in turns over several rounds (each
 round's order the reverse of the last), with ``torch._int_mm`` plus the
 compare and sum and any other source with the kernel's first C entry
 point (``support_count_int8_launch(T, C, sizes, out, N, M, I, stream)``,
@@ -41,8 +43,10 @@ from repro_torch.kernels.support_count import kernel
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "build" / "support_count_int8_designs"
-N_TX, ITEMS = 3128, 1024        # one of the dense mine's 32 tiles
-ROUND_M = (2176, 256, 128)      # candidates a round (k = 2, 3, then 4, 5)
+ITEMS = 1024
+# (transactions, candidates): one of the dense mine's 32 tiles against a
+# round's candidates (k = 2, 3, then 4 and 5), and a short tile
+SHAPES = ((3128, 2176), (3128, 256), (3128, 128), (512, 128))
 LAUNCHES = 100                  # launches a timing, queued behind a spin
 
 
@@ -53,8 +57,7 @@ def launch(T, C, sizes, geom):
     out = torch.zeros(C.shape[0], dtype=torch.int32, device=T.device)
     err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(), out.data_ptr(),
              N, C.shape[0], I, geom.warpgroups, geom.n, geom.cluster,
-             geom.multicast, geom.stages,
-             torch.cuda.current_stream().cuda_stream)
+             geom.stages, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{geom}: CUDA error {err}")
     return out
@@ -88,37 +91,33 @@ def other_source(name, path):
     return run
 
 
-def geometries(M, sms):
-    """Every geometry the kernel takes at [N_TX, ITEMS] x [M, ITEMS]: each
+def geometries(N, M, sms):
+    """Every geometry the kernel takes at [N, ITEMS] x [M, ITEMS]: each
     warpgroup count, tile width and cluster (one that divides the slabs,
     and, above 1, with no more CTAs than two waves), with the ring
-    ``geometry`` would give it and with 2 stages; and without a cluster,
-    each candidate tile multicast to 2 and 4 transaction tiles."""
+    ``geometry`` would give it and with 2 stages."""
     slabs = -(-ITEMS // kernel.SLAB)
     out = []
     for wg in (1, 2):
         for n in kernel.TILE_WIDTHS:
-            tiles = -(-N_TX // (64 * wg)) * -(-M // n)
+            tiles = -(-N // (64 * wg)) * -(-M // n)
             for cs in kernel.CLUSTERS:
                 if slabs % cs or (cs > 1 and tiles * cs > 2 * sms):
                     continue
                 full = min(slabs // cs, kernel.max_stages(wg, n))
                 for stages in sorted({full, min(2, full)}):
                     out.append(kernel.Geometry(wg, n, cs, stages))
-                    if cs == 1:
-                        out += [kernel.Geometry(wg, n, 1, stages, mc)
-                                for mc in kernel.MULTICASTS[1:]]
     return out
 
 
-def inputs(M, seed):
+def inputs(N, M, seed):
     """Transactions of density 0.05 and candidates of 2-3 items drawn from
     random transactions (one empty), as a mining round has them."""
     rng = np.random.default_rng(seed)
-    T = (rng.random((N_TX, ITEMS)) < 0.05).astype(np.int8)
+    T = (rng.random((N, ITEMS)) < 0.05).astype(np.int8)
     C = np.zeros((M, ITEMS), np.int8)
     for m in range(1, M):
-        items = np.flatnonzero(T[rng.integers(N_TX)])
+        items = np.flatnonzero(T[rng.integers(N)])
         if len(items) < 2:
             items = rng.choice(ITEMS, 3, replace=False)
         C[m, rng.choice(items, min(len(items), rng.integers(2, 4)),
@@ -163,20 +162,20 @@ def main(argv=None) -> int:
         others[name] = other_source(name, Path(path).resolve())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
-    for M in ROUND_M:
-        T, C, sizes = inputs(M, M)
-        picked = kernel.geometry(N_TX, M, ITEMS, sms)
+    for N, M in SHAPES:
+        T, C, sizes = inputs(N, M, N + M)
+        picked = kernel.geometry(N, M, ITEMS, sms)
         want = kernel.support_count_int8_plain(T, C, sizes)
 
         def int_mm(T=T, C=C, sizes=sizes):
             dots = torch._int_mm(T, C.t())
             return (dots == sizes[None, :]).sum(dim=0, dtype=torch.int32)
-        designs = {g.describe(N_TX, M, ITEMS)
+        designs = {g.describe(N, M, ITEMS)
                    + (" [picked]" if g == picked else ""):
                    (lambda g=g: launch(T, C, sizes, g))
-                   for g in geometries(M, sms)}
-        if picked not in geometries(M, sms):
-            designs[picked.describe(N_TX, M, ITEMS) + " [picked]"] = (
+                   for g in geometries(N, M, sms)}
+        if picked not in geometries(N, M, sms):
+            designs[picked.describe(N, M, ITEMS) + " [picked]"] = (
                 lambda: launch(T, C, sizes, picked))
         designs.update({name: (lambda run=run: run(T, C, sizes))
                         for name, run in others.items()})
@@ -185,30 +184,30 @@ def main(argv=None) -> int:
             got = fn()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError(f"{name} at M = {M} differs from the "
-                                     "plain version")
+                raise AssertionError(f"{name} at [{N}, {M}] differs from "
+                                     "the plain version")
         if not (want > 0).any():
-            raise AssertionError(f"no candidate is supported at M = {M}")
+            raise AssertionError(f"no candidate is supported at [{N}, {M}]")
         times = {name: [] for name in designs}
         order = list(designs)
         for _ in range(args.rounds):
             for name in order:
                 times[name].append(device_ms(designs[name]))
             order.reverse()
-        bound = max(2 * N_TX * M * ITEMS / 1979e12,
-                    (N_TX * ITEMS + M * ITEMS + 8 * M) / 3.35e12) * 1e3
-        print(f"[{N_TX} x {ITEMS}] x [{M} x {ITEMS}], exact; bound "
+        bound = max(2 * N * M * ITEMS / 1979e12,
+                    (N * ITEMS + M * ITEMS + 8 * M) / 3.35e12) * 1e3
+        print(f"[{N} x {ITEMS}] x [{M} x {ITEMS}], exact; bound "
               f"{bound:.5f} ms; ms over {args.rounds} rounds of {LAUNCHES} "
               "launches (median, fastest, slowest):")
         for name, ts in sorted(times.items(),
                                key=lambda kv: statistics.median(kv[1])):
             print(f"  {name}: {statistics.median(ts):.5f}, {min(ts):.5f}, "
                   f"{max(ts):.5f}")
-        results[M] = dict(bound_ms=bound, ms=times)
+        results[f"{N}x{M}"] = dict(bound_ms=bound, ms=times)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(dict(card=card, shape=[N_TX, ITEMS],
-                                            rounds=results), indent=1))
+        args.out.write_text(json.dumps(dict(card=card, items=ITEMS,
+                                            shapes=results), indent=1))
     return 0
 
 
