@@ -10,7 +10,7 @@
 // - wgmma m64nNk32 s8 x s8 -> s32 (wgmma_s8) and m64nNk256 b1 AND-popc ->
 //   s32 (wgmma_b1).  A k32 s8 step and a k256 b1 step both read 32 bytes
 //   of a row, so one descriptor, advanced 32 bytes a step, serves both;
-// - the driver's cuTensorMapEncodeTiled, found through the runtime, so
+// - libcuda's cuTensorMapEncodeTiled, found through the runtime, so
 //   the libraries need no link against libcuda.
 
 #pragma once
