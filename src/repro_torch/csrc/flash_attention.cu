@@ -64,10 +64,9 @@
 // first live key's correction factor exp(-1e30 - m) = 0 wipes that out.
 // The diagonal is always live, so every row ends with a real max.
 
-#include <cstdint>
-#include <cuda.h>          // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "sm90.cuh"        // mbarriers, wgmma fences, cuTensorMapEncodeTiled
 
 namespace {
 
@@ -86,7 +85,7 @@ __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
 // bf16 at hd 64-256: TMA ring, a producer thread, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kSlab = 64;            // columns in one 128-byte swizzled row
+constexpr int kSlabCols = 64;        // columns in one 128-byte swizzled row
 
 // keys a tile, stages in the ring, consumer warpgroups of 64 query rows,
 // and the registers a consumer thread takes: 65,536 a block, of which the
@@ -110,42 +109,6 @@ constexpr size_t hopper_smem_bytes() {
   // then the barriers: Q, full K and V per stage, empty per stage
   return 1024 + 2 * (T::kBQ * HD + 2 * T::kStages * T::BK * HD)
          + 8 * (1 + 3 * T::kStages);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 // one box of a 4-d tensor map (coordinates innermost first) into shared
@@ -172,18 +135,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // 2^x by the special-function unit alone (relative error about 2^-22;
@@ -366,8 +317,8 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BK = HopperTile<HD>::BK;
   constexpr int kStages = HopperTile<HD>::kStages;
   constexpr int kBQ = HopperTile<HD>::kBQ;
-  constexpr int kSlabs = HD / kSlab;
-  constexpr uint32_t kRowBytes = 2 * kSlab;               // 128
+  constexpr int kSlabs = HD / kSlabCols;
+  constexpr uint32_t kRowBytes = 2 * kSlabCols;           // 128
   constexpr uint32_t kQBytes = 2 * kBQ * HD;
   constexpr uint32_t kTileBytes = 2 * BK * HD;             // one K or V tile
   extern __shared__ __align__(1024) unsigned char hopper_smem[];
@@ -404,7 +355,7 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_bar, kQBytes);
       for (int j = 0; j < kSlabs; ++j)
-        tma_load(q_s + j * kBQ * kRowBytes, &tm_q, q_bar, j * kSlab, h,
+        tma_load(q_s + j * kBQ * kRowBytes, &tm_q, q_bar, j * kSlabCols, h,
                  q0, b);
       for (int t = t_begin, i = 0; t <= t_end; ++t, ++i) {
         const int s = i % kStages;
@@ -413,11 +364,11 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(full_k + 8 * s, kTileBytes);
         for (int j = 0; j < kSlabs; ++j)
           tma_load(k_s + s * kTileBytes + j * BK * kRowBytes, &tm_k,
-                   full_k + 8 * s, j * kSlab, g, t * BK, b);
+                   full_k + 8 * s, j * kSlabCols, g, t * BK, b);
         mbar_expect_tx(full_v + 8 * s, kTileBytes);
         for (int j = 0; j < kSlabs; ++j)
           tma_load(v_s + s * kTileBytes + j * BK * kRowBytes, &tm_v,
-                   full_v + 8 * s, j * kSlab, g, t * BK, b);
+                   full_v + 8 * s, j * kSlabCols, g, t * BK, b);
       }
     }
   } else {
@@ -956,33 +907,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's
-// entry-point query so the library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a [B, S, heads, hd] bf16 tensor read in boxes of 64 columns x rows of
 // one head, 128-byte swizzled; rows past S read as zeros
 bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
@@ -993,7 +917,7 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t row = 2ull * hd;
   const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {kSlab, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {kSlabCols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,

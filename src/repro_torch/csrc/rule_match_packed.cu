@@ -28,14 +28,15 @@
 // the row split over a cluster when it spans several slabs, and without a
 // cluster each thread comparing, weighting and storing its own
 // accumulators, its rules' sizes and confidences loaded while the slabs
-// land.  Only the instruction and the int32 sizes differ.  The geometry
-// (kernels/rule_match/fused.py's geometry()) puts the rules on M, 64 a
-// CTA, and the batch on N.
+// land.  Only the instruction and the int32 sizes differ.  The rules are
+// on M, 64 a CTA, and the batch on N; kernels/rule_match/fused.py's
+// geometry() picks N and the cluster.
 //
 // Chosen over (tools/rule_match_packed_designs.py, medians of 9 rounds,
 // NVIDIA H100 80GB HBM3, 700.00 W), at [64 x 896], [8 x 896] and [64 x
 // 16,384] x 32 words: this kernel 0.00323 / 0.00272 / 0.00405 ms; the
-// queries on M 0.00351 / 0.00294 / 0.00609; a CUDA-core design that fills
+// queries on M (timed from tools/rule_match_packed_layouts.cu) 0.00351 /
+// 0.00294 / 0.00609; a CUDA-core design that fills
 // the SMs (tools/rule_match_packed_cuda_cores.cu) 0.00363 / 0.00332 /
 // 0.01698; the kernel it replaced (a rule a thread, 64 threads a CTA)
 // 0.00449 / 0.00415 / 0.01400; an empty launch 0.00189-0.00190.  So what
@@ -48,17 +49,26 @@
 #include "rule_match_wgmma.cuh"
 
 // Qw [B, W] and Aw [R, W] int32 words, sizes [R] int32, conf [R] float32,
-// out [B, R] float32; the geometry as rule_match_int8_launch's, with the
-// 4W bytes of a row in place of the items.
+// out [B, R] float32.  The geometry (kernels/rule_match/fused.py's
+// geometry()): the rules on M, 64 a CTA; n in {8, 16, 32, 64} queries a
+// tile, and cs in {1, 2, 4, 8} CTAs splitting the 4W bytes of a row.  Any
+// other geometry is refused.
 extern "C" int rule_match_packed_launch(const void* Qw, const void* Aw,
                                         const void* sizes, const void* conf,
                                         void* out, int B, int R, int W,
-                                        int rules_on_m, int wg, int n, int cs,
-                                        void* stream) {
+                                        int n, int cs, void* stream) {
   const RuleMatchArgs a{Qw, Aw, sizes, static_cast<const float*>(conf),
                         static_cast<float*>(out), B, R, 4 * W, cs,
                         static_cast<cudaStream_t>(stream)};
-  return rule_match_launch<true>(a, rules_on_m, wg, n);
+  if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (n) {
+    case 8: return launch_tile<1, 8, true, true>(a);
+    case 16: return launch_tile<1, 16, true, true>(a);
+    case 32: return launch_tile<1, 32, true, true>(a);
+    case 64: return launch_tile<1, 64, true, true>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

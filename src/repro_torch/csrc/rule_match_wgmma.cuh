@@ -304,10 +304,12 @@ int launch_tile(const RuleMatchArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The geometries a caller may name: rules_on_m with wg in {1, 2}
-// warpgroups (64 rules each) and n in {8, 16, 32, 64} queries a tile, or
-// queries on M with wg 1 (64 queries) and n = 32 rules a tile; cs in {1,
-// 2, 4, 8} CTAs splitting the row.  Any other geometry is refused.
+// Every geometry of the kernel, as rule_match_int8.cu's launcher takes
+// them (rule_match_packed.cu's instantiates only the tiles its geometry()
+// picks): rules_on_m with wg in {1, 2} warpgroups (64 rules each) and n
+// in {8, 16, 32, 64} queries a tile, or queries on M with wg 1 (64
+// queries) and n = 32 rules a tile; cs in {1, 2, 4, 8} CTAs splitting the
+// row.  Any other geometry is refused.
 template <bool kBits>
 int rule_match_launch(const RuleMatchArgs& a, int rules_on_m, int wg,
                       int n) {

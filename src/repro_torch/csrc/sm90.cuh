@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the port's integer wgmma kernels:
-// rule_match_int8.cu, rule_match_packed.cu (through rule_match_wgmma.cuh)
-// and support_count_int8.cu.
+// Hopper (sm_90a) building blocks of the port's TMA and wgmma kernels:
+// flash_attention.cu and wkv6.cu take the mbarrier, fence and tensor-map
+// helpers (with their own 4-d / 3-d TMA loads, descriptors and maps); the
+// integer wgmma kernels, rule_match_int8.cu, rule_match_packed.cu (through
+// rule_match_wgmma.cuh) and support_count_int8.cu, take all of it.
 //
 // - mbarriers and TMA: one thread copies a 2-d box of a tensor map into
 //   shared memory and the copy completes its bytes on an mbarrier;

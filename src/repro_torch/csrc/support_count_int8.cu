@@ -37,18 +37,13 @@
 //   them.
 // - Filling the card: a small round takes narrower candidate tiles (M =
 //   256 as 2 x 128, M = 128 as 2 x 64: 98 CTAs, every slab of a CTA in
-//   flight at once).  Where even 64-wide tiles leave most of the card idle
-//   (a short transaction tile), a tile's item axis is split over a
-//   cluster of 2, 4 or 8 CTAs.  The compare is not linear, so the partial
-//   dots meet first: each CTA writes its int32 partials to its own shared
-//   memory, and after a cluster barrier each takes 1/cs of the tile's
-//   rows, adds the cluster's partials through distributed shared memory,
-//   compares and counts.  At the mining rounds the narrower tiles won:
-//   0.0096 / 0.0087 ms at M = 256 / 128 against 0.0115 / 0.0099 for the
-//   best cluster (tools/support_count_int8_designs.py, medians of 5
-//   rounds); at a short tile [512 x 1,024] against 128 candidates (16
-//   tiles) a cluster of 8 reads 0.0086 against 0.0087 without one.
-// - The geometry (warpgroups, N, cluster, stages) is the caller's:
+//   flight at once).  Splitting a tile's item axis over a cluster, with
+//   the partial dots meeting in distributed shared memory before the
+//   compare, lost at those rounds: 0.0115 / 0.0099 ms at M = 256 / 128
+//   for its best cluster against 0.0096 / 0.0087 for the narrower tiles
+//   (tools/support_count_int8_designs.py as of commit cddde5a, medians of
+//   5 rounds, NVIDIA H100 80GB HBM3, 700.00 W), and was taken out.
+// - The geometry (warpgroups, N, stages) is the caller's:
 //   kernels/support_count/kernel.py's geometry() picks it for each shape.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; each time a
@@ -67,16 +62,11 @@
 // The caller zeroes `out`; T and C are contiguous and 16-byte aligned with
 // I % 16 == 0 (the wrapper asks I % 64 == 0).
 
-#include <cooperative_groups.h>
-
 #include "sm90.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kMaxStages = 8;     // slabs in flight in a CTA's ring
-constexpr int kPad = 4;           // ints of padding a partials row
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 // A CTA: WG consumer warpgroups of 64 transactions each against N
@@ -88,16 +78,10 @@ struct Tile {
   static constexpr int kThreads = kConsumers + 32;
   static constexpr uint32_t kTBytes = kRows * kSlab;
   static constexpr uint32_t kStageBytes = (kRows + N) * kSlab;
-  static constexpr uint32_t kPartialBytes = kRows * (N + kPad) * 4;
-  // the ring, or the partial dots of a cluster where they take more
-  __host__ __device__ static constexpr uint32_t region(int stages) {
-    return stages * kStageBytes > kPartialBytes ? stages * kStageBytes
-                                                : kPartialBytes;
-  }
   // the 1 KB swizzle alignment, the ring, a full and an empty barrier a
   // stage, the candidates' sizes and hits
-  __host__ __device__ static constexpr size_t smem_bytes(int stages) {
-    return 1024 + region(stages) + 16 * stages + 8 * N;
+  static constexpr size_t smem_bytes(int stages) {
+    return 1024 + stages * kStageBytes + 16 * stages + 8 * N;
   }
 };
 
@@ -109,24 +93,17 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
                           int* __restrict__ out, int n_tx, int M, int I,
                           int stages) {
   using T = Tile<WG, N>;
-  static_assert(T::kConsumers % (N / 4) == 0, "a thread keeps one quad");
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   unsigned char* tile = smem + (base - smem_u32(smem));
-  const uint32_t region = T::region(stages);
-  const uint32_t full = base + region, empty = full + 8 * stages;
-  int* partial = reinterpret_cast<int*>(tile);
-  int* s_sizes = reinterpret_cast<int*>(tile + region + 16 * stages);
+  const uint32_t ring = stages * T::kStageBytes;
+  const uint32_t full = base + ring, empty = full + 8 * stages;
+  int* s_sizes = reinterpret_cast<int*>(tile + ring + 16 * stages);
   int* s_hits = s_sizes + N;
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int c0 = (blockIdx.x / cs) * N;
-  // this rank's slabs of the item axis, and this CTA's transaction tiles
+  const int c0 = blockIdx.x * N;
+  // the item axis's slabs, and this CTA's transaction tiles
   const int slabs = (I + kSlab - 1) / kSlab;
-  const int s_begin = rank * slabs / cs;
-  const int count = (rank + 1) * slabs / cs - s_begin;
   const int t_tiles = (n_tx + T::kRows - 1) / T::kRows;
   const int iters = static_cast<int>(blockIdx.y) < t_tiles
                         ? (t_tiles - 1 - blockIdx.y) / gridDim.y + 1
@@ -146,23 +123,19 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool consumer = warp < 4 * WG;
   const int g = lane / 4, t = lane % 4;
-  int acc[N / 2];
   uint32_t hits[N / 8];          // columns 8j + 2t (low half) and + 1
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) acc[e] = 0;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) hits[j] = 0;
 
-  if (!consumer) {
+  if (warp == 4 * WG) {
     // ---- producer: slab i of this CTA into stage i % stages -----------
     if (lane == 0) {
-      for (int i = 0; i < iters * count; ++i) {
+      for (int i = 0; i < iters * slabs; ++i) {
         const int s = i % stages;
         if (i >= stages) mbar_wait(empty + 8 * s, (i / stages - 1) & 1);
-        const int row0 = (blockIdx.y + (i / count) * gridDim.y) * T::kRows;
-        const int col = (s_begin + i % count) * kSlab;
+        const int row0 = (blockIdx.y + (i / slabs) * gridDim.y) * T::kRows;
+        const int col = (i % slabs) * kSlab;
         const uint32_t dst = base + s * T::kStageBytes;
         mbar_expect_tx(full + 8 * s, T::kStageBytes);
         tma_load(dst, &tm_t, full + 8 * s, col, row0);
@@ -172,11 +145,12 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
   } else {
     // ---- consumers: each warpgroup its 64 transactions -----------------
     const int wg = warp / 4;
+    int acc[N / 2];
     for (int it = 0; it < iters; ++it) {
 #pragma unroll
       for (int e = 0; e < N / 2; ++e) acc[e] = 0;
-      for (int k = 0; k < count; ++k) {
-        const int i = it * count + k, s = i % stages;
+      for (int k = 0; k < slabs; ++k) {
+        const int i = it * slabs + k, s = i % stages;
         mbar_wait(full + 8 * s, (i / stages) & 1);
         const uint32_t a = base + s * T::kStageBytes + wg * 64 * kSlab;
         const uint32_t b = base + s * T::kStageBytes + T::kTBytes;
@@ -193,90 +167,42 @@ support_count_int8_kernel(const __grid_constant__ CUtensorMap tm_t,
       }
       wgmma_wait_all();
       fence_regs(acc);
-      if (count > 0 && lane == 0)
-        mbar_arrive(empty + 8 * ((it * count + count - 1) % stages));
-      if (cs == 1) {
-        // compare in registers; rows past n_tx are zero-filled, masked
-        const int r = (blockIdx.y + it * gridDim.y) * T::kRows + wg * 64 +
-                      16 * (warp % 4) + g;
-        const bool lo = r < n_tx, hi = r + 8 < n_tx;
-#pragma unroll
-        for (int j = 0; j < N / 8; ++j) {
-          const int s0 = s_sizes[8 * j + 2 * t];
-          const int s1 = s_sizes[8 * j + 2 * t + 1];
-          const uint32_t h0 = (lo & (acc[4 * j] == s0)) +
-                              (hi & (acc[4 * j + 2] == s0));
-          const uint32_t h1 = (lo & (acc[4 * j + 1] == s1)) +
-                              (hi & (acc[4 * j + 3] == s1));
-          hits[j] += h0 | h1 << 16;
-        }
-      }
-    }
-  }
-  __syncthreads();               // every product is done, the ring drained
-
-  if (cs == 1) {
-    // a column's 8 rows groups g (lane bits 2-4) meet in three shuffles;
-    // each half stays below 2**16 (16 hits a tile, at most 512 tiles)
-    if (consumer) {
+      if (slabs > 0 && lane == 0)
+        mbar_arrive(empty + 8 * ((it * slabs + slabs - 1) % stages));
+      // compare in registers; rows past n_tx are zero-filled, masked
+      const int r = (blockIdx.y + it * gridDim.y) * T::kRows + wg * 64 +
+                    16 * (warp % 4) + g;
+      const bool lo = r < n_tx, hi = r + 8 < n_tx;
 #pragma unroll
       for (int j = 0; j < N / 8; ++j) {
-        uint32_t v = hits[j];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (g == 0 && v) {
-          const int lo = static_cast<int>(v & 0xFFFFu);
-          const int hi = static_cast<int>(v >> 16);
-          if (lo) atomicAdd(&s_hits[8 * j + 2 * t], lo);
-          if (hi) atomicAdd(&s_hits[8 * j + 2 * t + 1], hi);
-        }
+        const int s0 = s_sizes[8 * j + 2 * t];
+        const int s1 = s_sizes[8 * j + 2 * t + 1];
+        const uint32_t h0 = (lo & (acc[4 * j] == s0)) +
+                            (hi & (acc[4 * j + 2] == s0));
+        const uint32_t h1 = (lo & (acc[4 * j + 1] == s1)) +
+                            (hi & (acc[4 * j + 3] == s1));
+        hits[j] += h0 | h1 << 16;
       }
     }
-  } else {
-    // one transaction tile a CTA (the launcher sees to it): partials
-    // [rows][N + kPad] over the drained ring, then this rank's rows
-    if (consumer) {
-      const int wg = warp / 4;
+    // a column's 8 row groups g (lane bits 2-4) meet in three shuffles;
+    // each half stays below 2**16 (16 hits a tile, at most 512 tiles)
 #pragma unroll
-      for (int e = 0; e < N / 2; ++e) {
-        const int row = wg * 64 + 16 * (warp % 4) + g + 8 * ((e % 4) / 2);
-        const int col = 8 * (e / 4) + 2 * t + e % 2;
-        partial[row * (N + kPad) + col] = acc[e];
+    for (int j = 0; j < N / 8; ++j) {
+      uint32_t v = hits[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0 && v) {
+        const int lo = static_cast<int>(v & 0xFFFFu);
+        const int hi = static_cast<int>(v >> 16);
+        if (lo) atomicAdd(&s_hits[8 * j + 2 * t], lo);
+        if (hi) atomicAdd(&s_hits[8 * j + 2 * t + 1], hi);
       }
-    }
-    cluster.sync();              // every rank's partials are written
-    if (consumer) {
-      constexpr int kQuads = N / 4;
-      const int rows = T::kRows / cs;
-      const int row0 = blockIdx.y * T::kRows;
-      const int q = threadIdx.x % kQuads;
-      const int4 sz = *reinterpret_cast<const int4*>(s_sizes + 4 * q);
-      int h[4] = {0, 0, 0, 0};
-      for (int e = threadIdx.x; e < rows * kQuads; e += T::kConsumers) {
-        const int r = rank * rows + e / kQuads;
-        if (row0 + r >= n_tx) break;        // rows only grow with e
-        int* local = partial + r * (N + kPad) + 4 * q;
-        int4 sum = make_int4(0, 0, 0, 0);
-        for (int c = 0; c < cs; ++c) {
-          const int4 p = *reinterpret_cast<const int4*>(
-              cluster.map_shared_rank(local, c));
-          sum.x += p.x; sum.y += p.y; sum.z += p.z; sum.w += p.w;
-        }
-        h[0] += sum.x == sz.x;
-        h[1] += sum.y == sz.y;
-        h[2] += sum.z == sz.z;
-        h[3] += sum.w == sz.w;
-      }
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        if (h[x]) atomicAdd(&s_hits[4 * q + x], h[x]);
     }
   }
-  __syncthreads();
+  __syncthreads();               // every warp's hits are in s_hits
   for (int c = threadIdx.x; c < N; c += blockDim.x)
     if (c0 + c < M && s_hits[c]) atomicAdd(out + c0 + c, s_hits[c]);
-  if (cs > 1) cluster.sync();    // no rank leaves while others read it
 }
 
 struct Args {
@@ -284,7 +210,7 @@ struct Args {
   const void* C;
   const int* sizes;
   int* out;
-  int N, M, I, cs, stages;
+  int N, M, I, stages;
   cudaStream_t stream;
 };
 
@@ -299,10 +225,7 @@ int launch(const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   const int t_tiles = (a.N + Tl::kRows - 1) / Tl::kRows;
   const int grid_y = t_tiles < 65535 ? t_tiles : 65535;
-  if (a.cs > 1 && grid_y < t_tiles)   // the cluster epilogue: one tile a CTA
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int slabs = (a.I + kSlab - 1) / kSlab;
-  const int per_cta = (slabs + a.cs - 1) / a.cs *
+  const int per_cta = (a.I + kSlab - 1) / kSlab *
                       ((t_tiles + grid_y - 1) / grid_y);
   // a consumer frees a stage only once the next slab's products are
   // issued, so a CTA that reads more than one slab needs two stages
@@ -316,21 +239,8 @@ int launch(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.M + N - 1) / N * a.cs, grid_y);
-  cfg.blockDim = dim3(Tl::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tm_t, tm_c, a.sizes, a.out, a.N,
-                           a.M, a.I, stages);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((a.M + N - 1) / N, grid_y), Tl::kThreads, smem, a.stream>>>(
+      tm_t, tm_c, a.sizes, a.out, a.N, a.M, a.I, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -340,19 +250,15 @@ int launch(const Args& a) {
 // contiguous and 16-byte aligned, I % 16 == 0.  The geometry
 // (kernels/support_count/kernel.py's geometry()): wg in {1, 2} consumer
 // warpgroups (64 transactions each), n in {64, 128, 256} candidates a
-// tile, cs in {1, 2, 4, 8} CTAs splitting the item axis (with more than
-// one only where every transaction tile has its own CTA), and up to
-// `stages` slabs in flight (at most 8 and as many as a CTA reads, at
-// least 2 where it reads more than one; as fit in shared memory).  Any
-// other geometry is refused.
+// tile, and up to `stages` slabs in flight (at most 8 and as many as a
+// CTA reads, at least 2 where it reads more than one; as fit in shared
+// memory).  Any other geometry is refused.
 extern "C" int support_count_int8_launch(const void* T, const void* C,
                                          const void* sizes, void* out, int N,
-                                         int M, int I, int wg, int n, int cs,
+                                         int M, int I, int wg, int n,
                                          int stages, void* stream) {
-  if (cs != 1 && cs != 2 && cs != 4 && cs != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{T, C, static_cast<const int*>(sizes), static_cast<int*>(out),
-               N, M, I, cs, stages, static_cast<cudaStream_t>(stream)};
+               N, M, I, stages, static_cast<cudaStream_t>(stream)};
   if (wg == 1) {
     switch (n) {
       case 64: return launch<1, 64>(a);

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/repro_torch/`` at the repository root.  The file name carries a
-digest of the source, the ``csrc/*.cuh`` headers and the flags, so an
-edited source or header is rebuilt and a stale library is never loaded.
+digest of the source, the ``csrc`` headers it includes and the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded, and a header edit rebuilds only the libraries that include it.
 :func:`build` starts one ``nvcc`` per missing library and waits for all
 of them, so a cold start costs one compile, not their sum.
 """
@@ -14,10 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,12 +37,29 @@ def _nvcc() -> str:
                        "source and need the CUDA toolkit (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, each once."""
+    found = [CSRC / f"{name}.cu"]
+    i = 0
+    while i < len(found):
+        for inc in _INCLUDE.findall(found[i].read_text()):
+            path = CSRC / inc
+            if path.is_file() and path not in found:
+                found.append(path)
+        i += 1
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` is built: named by a digest
-    of the source, the headers beside it and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
+    of the source, the headers it includes and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"

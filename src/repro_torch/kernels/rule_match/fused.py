@@ -18,19 +18,19 @@ AND-popcount on Hopper's binary tensor cores, ``wgmma`` m64nNk256 ``.b1
 so it is the int8 rule-match kernel (``csrc/rule_match_wgmma.cuh``: TMA
 loads onto an ``mbarrier``, 128-byte-swizzled descriptors, either operand
 on M, a cluster splitting long rows) with the b1 instruction and int32
-sizes.  :func:`geometry` picks the launch: the rules on M, one
-warpgroup of 64 a CTA, the batch as N.
+sizes.  The rules are on M, 64 a CTA, and the batch on N;
+:func:`geometry` picks N and the cluster.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import loader, sm_count
 from repro_torch.kernels.rule_match import kernel as int8_kernel
-from repro_torch.kernels.rule_match.kernel import Geometry
 from repro_torch.kernels.support_count.fused import pack_words, popcount32
 
 # the wrapper's contract on the word axis: TMA rows of a multiple of 16
@@ -61,17 +61,31 @@ def rule_scores_packed_plain(Qw: torch.Tensor, Aw: torch.Tensor,
     return out
 
 
+class Geometry(NamedTuple):
+    """A launch of the kernel, whose CTAs each take 64 rules as wgmma's M
+    operand: N (queries a tile) and the cluster size splitting a row's
+    128-byte slabs."""
+    n: int
+    cluster: int
+
+    def describe(self, B: int, R: int) -> str:
+        tiles = -(-R // 64) * -(-B // self.n)
+        return (f"rules on M, tiles of 64 rules x {self.n} queries, {tiles} "
+                f"tiles x cluster {self.cluster} = {tiles * self.cluster} "
+                "CTAs of 128 threads")
+
+
 def geometry(B: int, R: int, W: int,
              sms: int = int8_kernel.H100_SMS) -> Geometry:
     """The launch geometry for [B, W] query words against [R, W] rule
-    words: the rules on wgmma's M side, one warpgroup of 64 rules a CTA,
-    and N the batch rounded up to 8, 16, 32 or 64 (batches above 64 take
-    several query tiles).  With the b1 product that layout was the
-    fastest at both of serving's buckets and for wide indexes
-    (``tools/rule_match_packed_designs.py``).  A row of 32 words is one
-    128-byte slab, so serving takes no cluster; a longer row is split
-    over a cluster, doubling up to 8 while it divides the slabs evenly
-    and the CTAs fit in one wave."""
+    words: N is the batch rounded up to 8, 16, 32 or 64 (batches above 64
+    take several query tiles).  With the b1 product the rules on M, one
+    warpgroup a CTA, were the fastest layout at both of serving's buckets
+    and for wide indexes (``tools/rule_match_packed_designs.py``), so the
+    kernel has no other.  A row of 32 words is one 128-byte slab, so
+    serving takes no cluster; a longer row is split over a cluster,
+    doubling up to 8 while it divides the slabs evenly and the CTAs fit
+    in one wave."""
     n = next(t for t in int8_kernel.QUERY_TILES if t >= min(B, 64))
     tiles = -(-R // 64) * -(-B // n)
     slabs = -(-4 * W // int8_kernel.SLAB)
@@ -79,14 +93,14 @@ def geometry(B: int, R: int, W: int,
     while (2 * cluster <= int8_kernel.CLUSTERS[-1]
            and slabs % (2 * cluster) == 0 and 2 * cluster * tiles <= sms):
         cluster *= 2
-    return Geometry(1, n, cluster)
+    return Geometry(n, cluster)
 
 
 @functools.cache
 def _launcher():
     lib = loader.load("rule_match_packed")
     fn = lib.rule_match_packed_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -151,9 +165,8 @@ def rule_scores_packed(Qw: torch.Tensor, Aw: torch.Tensor,
     with torch.cuda.device(Qw.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Qw.data_ptr(), Aw.data_ptr(), sizes.data_ptr(),
-                 conf.data_ptr(), out.data_ptr(), B, R, W,
-                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
-                 stream)
+                 conf.data_ptr(), out.data_ptr(), B, R, W, geom.n,
+                 geom.cluster, stream)
     loader.check(lib, err, "rule_match_packed launch")
     rule_scores_packed.launches += 1
     return out

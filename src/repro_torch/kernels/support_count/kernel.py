@@ -17,11 +17,9 @@ the transactions on M and a tile of 64, 128 or 256 candidates on N, fed
 by TMA from a producer warp through a ring of ``mbarrier`` stages; the
 ``== sizes`` compare and the sum over transactions happen in registers,
 with one ``atomicAdd`` a candidate a CTA (exact).  A small round takes
-narrower candidate tiles, so that its CTAs fill half the card; where
-even those leave most of it idle (few transactions), a tile's item axis
-is split over a cluster whose partial dots meet in distributed shared
-memory before the compare.  :func:`geometry` picks the tile, the
-warpgroups, the cluster and the ring for each shape.
+narrower candidate tiles, so that its CTAs fill half the card.
+:func:`geometry` picks the tile, the warpgroups and the ring for each
+shape.
 """
 from __future__ import annotations
 
@@ -38,45 +36,38 @@ from repro_torch.kernels import loader, sm_count
 ITEM_MULTIPLE = 64
 SLAB = 128                     # items a TMA box and a swizzled row hold
 TILE_WIDTHS = (64, 128, 256)   # wgmma N: candidates a tile
-CLUSTERS = (1, 2, 4, 8)        # CTAs splitting a tile's item axis
 MAX_STAGES = 8                 # slabs in flight in a CTA's ring
 MAX_GRID_Y = 65535             # transaction tiles a launch spreads over
 SMEM_LIMIT = 232448            # dynamic shared memory a CTA may use
 H100_SMS = 132
-_PAD = 4                       # ints of padding a row of partial dots
 
 
 class Geometry(NamedTuple):
     """A launch of the kernel: consumer warpgroups a CTA (64 transactions
-    each, wgmma's M), candidates a tile (wgmma's N), the cluster size
-    splitting a tile's item axis, and the slabs a CTA keeps in flight."""
+    each, wgmma's M), candidates a tile (wgmma's N), and the slabs a CTA
+    keeps in flight."""
     warpgroups: int
     n: int
-    cluster: int
     stages: int
 
     def smem_bytes(self) -> int:
-        """The CTA's shared memory, as the kernel lays it out: the ring
-        (or, if larger, the partial dots a cluster adds), two barriers a
-        stage, and the tile's sizes and hits."""
-        rows = 64 * self.warpgroups
-        ring = self.stages * (rows + self.n) * SLAB
-        partials = rows * (self.n + _PAD) * 4
-        return 1024 + max(ring, partials) + 16 * self.stages + 8 * self.n
+        """The CTA's shared memory, as the kernel lays it out: the ring,
+        two barriers a stage, and the tile's sizes and hits."""
+        ring = self.stages * (64 * self.warpgroups + self.n) * SLAB
+        return 1024 + ring + 16 * self.stages + 8 * self.n
 
     def describe(self, N: int, M: int, I: int) -> str:
         rows = 64 * self.warpgroups
         tiles = -(-N // rows) * -(-M // self.n)
-        return (f"tiles of {rows} transactions x {self.n} candidates, "
-                f"{tiles} tiles x cluster {self.cluster} = "
-                f"{tiles * self.cluster} CTAs of {128 * self.warpgroups + 32}"
-                f" threads, {self.stages} stages")
+        return (f"tiles of {rows} transactions x {self.n} candidates "
+                f"= {tiles} CTAs of {128 * self.warpgroups + 32} threads, "
+                f"{self.stages} stages")
 
 
 def max_stages(warpgroups: int, n: int) -> int:
     """The most stages whose ring fits in a CTA's shared memory."""
     return max(s for s in range(1, MAX_STAGES + 1)
-               if Geometry(warpgroups, n, 1, s).smem_bytes() <= SMEM_LIMIT)
+               if Geometry(warpgroups, n, s).smem_bytes() <= SMEM_LIMIT)
 
 
 def geometry(N: int, M: int, I: int, sms: int = H100_SMS) -> Geometry:
@@ -89,27 +80,17 @@ def geometry(N: int, M: int, I: int, sms: int = H100_SMS) -> Geometry:
     re-reading its transactions beat fewer that read more candidates
     (``tools/support_count_int8_designs.py``).  A CTA takes 128
     transactions (two warpgroups) once tiles of 64 would overfill a wave.
-    Where the tiles are still fewer than half a wave, the cluster
-    doubles, up to 8 and while it divides the 128-item slabs evenly, as
-    long as the CTAs fit in one wave (and every transaction tile has a
-    CTA of its own).  The ring holds every slab a CTA reads, up to 8 and
-    what shared memory allows.
+    The ring holds every slab a CTA reads, up to 8 and what shared memory
+    allows.
     """
     n = next(w for w in TILE_WIDTHS if w >= min(M, TILE_WIDTHS[-1]))
     while n > TILE_WIDTHS[0] and 2 * -(-N // 64) * -(-M // n) <= sms:
         n //= 2
-    c_tiles = -(-M // n)
-    warpgroups = 2 if -(-N // 64) * c_tiles > sms else 1
+    warpgroups = 2 if -(-N // 64) * -(-M // n) > sms else 1
     t_tiles = -(-N // (64 * warpgroups))
-    tiles = t_tiles * c_tiles
-    slabs = -(-I // SLAB)
-    cluster = 1
-    while (2 * cluster <= CLUSTERS[-1] and slabs % (2 * cluster) == 0
-           and 2 * cluster * tiles <= sms and t_tiles <= MAX_GRID_Y):
-        cluster *= 2
-    per_cta = -(-slabs // cluster) * -(-t_tiles // min(t_tiles, MAX_GRID_Y))
+    per_cta = -(-I // SLAB) * -(-t_tiles // min(t_tiles, MAX_GRID_Y))
     stages = max(1, min(per_cta, max_stages(warpgroups, n)))
-    return Geometry(warpgroups, n, cluster, stages)
+    return Geometry(warpgroups, n, stages)
 
 
 def support_count_int8_plain(T: torch.Tensor, C: torch.Tensor,
@@ -130,7 +111,7 @@ def support_count_int8_plain(T: torch.Tensor, C: torch.Tensor,
 def _launcher():
     lib = loader.load("support_count_int8")
     fn = lib.support_count_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
@@ -183,7 +164,7 @@ def support_count_int8(T: torch.Tensor, C: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(),
                  out.data_ptr(), N, M, I, geom.warpgroups, geom.n,
-                 geom.cluster, geom.stages, stream)
+                 geom.stages, stream)
     loader.check(lib, err, "support_count_int8 launch")
     support_count_int8.launches += 1
     return out

@@ -301,13 +301,13 @@ def test_int8_geometry_fills_one_wave_without_empty_slabs(sms):
 # slab a row, no cluster); longer rows split over a cluster that divides
 # their slabs while the CTAs fit in one wave
 PACKED_GEOMETRIES = {
-    (64, 896, 32): (kernel.Geometry(1, 64, 1), 14),
-    (8, 896, 32): (kernel.Geometry(1, 8, 1), 14),
-    (64, 16384, 32): (kernel.Geometry(1, 64, 1), 256),
-    (5, 333, 240): (kernel.Geometry(1, 8, 8), 48),
-    (17, 333, 48): (kernel.Geometry(1, 32, 2), 12),
-    (37, 333, 96): (kernel.Geometry(1, 64, 1), 6),
-    (65, 4000, 64): (kernel.Geometry(1, 64, 1), 126),
+    (64, 896, 32): (fused.Geometry(64, 1), 14),
+    (8, 896, 32): (fused.Geometry(8, 1), 14),
+    (64, 16384, 32): (fused.Geometry(64, 1), 256),
+    (5, 333, 240): (fused.Geometry(8, 8), 48),
+    (17, 333, 48): (fused.Geometry(32, 2), 12),
+    (37, 333, 96): (fused.Geometry(64, 1), 6),
+    (65, 4000, 64): (fused.Geometry(64, 1), 126),
 }
 
 
@@ -316,19 +316,17 @@ def test_packed_launch_geometry(shape):
     want, ctas = PACKED_GEOMETRIES[shape]
     geom = fused.geometry(*shape)
     assert geom == want
-    assert f"= {ctas} CTAs" in geom.describe(shape[0], shape[1], 4 * shape[2])
+    assert f"= {ctas} CTAs" in geom.describe(shape[0], shape[1])
 
 
 @pytest.mark.parametrize("sms", [8, 132])
 def test_packed_geometry_fits(sms):
-    """Over ragged shapes: the rules on M with one warpgroup and N
-    covering the batch (or 64), a cluster that divides the row's 128-byte
-    slabs and, above 1, keeps one wave."""
+    """Over ragged shapes: N covering the batch (or 64), a cluster that
+    divides the row's 128-byte slabs and, above 1, keeps one wave."""
     for B in (1, 7, 8, 9, 31, 33, 64, 65, 200):
         for R in (1, 64, 127, 896, 5000, 16384):
             for W in (4, 12, 32, 36, 64, 96, 256):
                 g = fused.geometry(B, R, W, sms)
-                assert (g.rules_on_m, g.warpgroups) == (True, 1)
                 assert g.n in kernel.QUERY_TILES and g.n >= min(B, 64)
                 assert g.n == 8 or g.n // 2 < min(B, 64)
                 slabs = -(-4 * W // kernel.SLAB)

@@ -174,9 +174,9 @@ def test_packed_kernel_padding_rows_never_match(card):
     assert not want.any()
 
 
-# every launch geometry that fused.geometry can pick: the rules on M, one
-# warpgroup, each N and each cluster
-PACKED_REACHABLE = [kernel.Geometry(1, n, c) for n in kernel.QUERY_TILES
+# every launch geometry that fused.geometry can pick: each N and each
+# cluster
+PACKED_REACHABLE = [fused.Geometry(n, c) for n in kernel.QUERY_TILES
                     for c in kernel.CLUSTERS]
 
 
@@ -188,14 +188,18 @@ def _packed_shape_for(geom, sms):
     return B, 333, 32 * geom.cluster - 16
 
 
+def _packed_geom_id(geom):
+    return "rules-wg1-n{}-cluster{}".format(*geom)
+
+
 @pytest.mark.parametrize("sms", [114, kernel.H100_SMS])
-@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_geom_id)
+@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_packed_geom_id)
 def test_every_reachable_geometry_has_a_packed_shape(geom, sms):
     assert fused.geometry(*_packed_shape_for(geom, sms), sms) == geom
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_geom_id)
+@pytest.mark.parametrize("geom", PACKED_REACHABLE, ids=_packed_geom_id)
 def test_packed_kernel_equals_plain_version_at_every_geometry(card, geom):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     shape = _packed_shape_for(geom, sms)

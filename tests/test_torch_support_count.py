@@ -188,22 +188,28 @@ def test_loader_names_libraries_by_source_and_needs_nvcc(monkeypatch,
 
 
 # (N, M, I) -> the int8 kernel's launch on 132 SMs, as (warpgroups, N,
-# cluster, stages), and its CTA count: the dense mine's k = 2 round takes
-# 128 x 256 tiles with as many slabs in flight as its ring holds; its
-# later rounds (M 256, 128) take narrower candidate tiles, so that 98
-# CTAs hold every slab in flight; a round of 512 keeps 256-wide tiles; a
-# short corpus splits its few tiles' items over a cluster where the slabs
-# divide evenly; a tall tile count takes two warpgroups and no cluster
+# stages), and its CTA count: the dense mine's k = 2 round takes 128 x 256
+# tiles with as many slabs in flight as its ring holds; its later rounds
+# (M 256, 128) take narrower candidate tiles, so that 98 CTAs hold every
+# slab in flight; a round of 512 keeps 256-wide tiles; a short corpus
+# takes 64-wide tiles and a ring of every slab; a tall tile count, or
+# wide tiles over a wave, takes two warpgroups
 SC_GEOMETRIES = {
-    (3128, 2176, 1024): ((2, 256, 1, 4), 225),
-    (3128, 256, 1024): ((1, 128, 1, 8), 98),
-    (3128, 128, 1024): ((1, 64, 1, 8), 98),
-    (3128, 512, 1024): ((1, 256, 1, 5), 98),
-    (77, 200, 128): ((1, 64, 1, 1), 8),
-    (1000, 257, 1024): ((1, 64, 1, 8), 80),
-    (300, 37, 960): ((1, 64, 8, 1), 40),
-    (300, 37, 384): ((1, 64, 1, 3), 5),
-    (100_000, 128, 1024): ((2, 128, 1, 7), 782),
+    (3128, 2176, 1024): ((2, 256, 4), 225),
+    (3128, 256, 1024): ((1, 128, 8), 98),
+    (3128, 128, 1024): ((1, 64, 8), 98),
+    (3128, 512, 1024): ((1, 256, 5), 98),
+    (77, 200, 128): ((1, 64, 1), 8),
+    (1000, 257, 1024): ((1, 64, 8), 80),
+    (300, 37, 960): ((1, 64, 8), 5),
+    (300, 37, 384): ((1, 64, 3), 5),
+    (100_000, 128, 1024): ((2, 128, 7), 782),
+    (512, 128, 1024): ((1, 64, 8), 16),
+    (100_000, 2176, 1024): ((2, 256, 4), 7038),
+    (8485, 256, 1024): ((2, 256, 4), 67),
+    (3128, 2176, 4096): ((2, 256, 4), 225),
+    (65, 1, 64): ((1, 64, 1), 2),
+    (1, 3, 64): ((1, 64, 1), 1),
 }
 
 
@@ -220,11 +226,9 @@ def test_int8_support_count_geometry_fits(sms):
     """Over ragged shapes every pick fits the kernel: a tile width the
     kernel is built for, no wider than M needs and narrower only where
     the wider tiles would fill less than half a wave, two warpgroups
-    only where 64-row tiles overfill a wave, a cluster that divides the
-    128-item slabs and, above 1, keeps one wave and one transaction tile
-    a CTA (of 64-wide tiles that fill less than half a wave), and a ring
-    of 1 to 8 stages (no more than a CTA's slabs, two where it reads
-    several) that fits in shared memory."""
+    only where 64-row tiles overfill a wave, and a ring of 1 to 8 stages
+    (no more than a CTA's slabs, two where it reads several) that fits
+    in shared memory."""
     for N in (1, 63, 64, 65, 3128, 8485, 100_000, 65535 * 128 + 1):
         for M in (1, 37, 64, 65, 128, 129, 256, 257, 2176):
             for I in (64, 128, 192, 960, 1024, 4096):
@@ -243,27 +247,18 @@ def test_int8_support_count_geometry_fits(sms):
                                         else 1)
                 t_tiles = -(-N // (64 * g.warpgroups))
                 slabs = -(-I // kernel.SLAB)
-                assert g.cluster in kernel.CLUSTERS
-                assert slabs % g.cluster == 0
-                if g.cluster > 1:
-                    assert g.n == 64
-                    assert t_tiles * c_tiles * g.cluster <= sms
-                    assert t_tiles <= kernel.MAX_GRID_Y
-                per_cta = (slabs // g.cluster
-                           * -(-t_tiles // min(t_tiles, kernel.MAX_GRID_Y)))
+                per_cta = slabs * -(-t_tiles // min(t_tiles,
+                                                    kernel.MAX_GRID_Y))
                 assert 1 <= g.stages <= min(kernel.MAX_STAGES, per_cta)
                 assert g.stages >= min(2, per_cta)
                 assert g.smem_bytes() <= kernel.SMEM_LIMIT
-                # a consumer thread keeps one quad of candidates in the
-                # cluster epilogue
-                assert (128 * g.warpgroups) % (g.n // 4) == 0
 
 
 def test_int8_support_count_max_stages_fill_shared_memory():
     for wg in (1, 2):
         for n in kernel.TILE_WIDTHS:
             s = kernel.max_stages(wg, n)
-            assert kernel.Geometry(wg, n, 1, s).smem_bytes() <= \
+            assert kernel.Geometry(wg, n, s).smem_bytes() <= \
                 kernel.SMEM_LIMIT
             assert s == kernel.MAX_STAGES or kernel.Geometry(
-                wg, n, 1, s + 1).smem_bytes() > kernel.SMEM_LIMIT
+                wg, n, s + 1).smem_bytes() > kernel.SMEM_LIMIT

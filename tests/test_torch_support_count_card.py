@@ -88,40 +88,36 @@ def test_int8_support_count_walks_past_the_grids_last_tile(card):
     assert int(want[0]) == N
 
 
-# every (warpgroups, N, cluster) that kernel.geometry can pick: tiles of
-# 64 candidates with each cluster (a cluster only where those tiles fill
-# less than half a wave), one warpgroup with the wider tiles, and two
-# warpgroups (64-row tiles above one wave) with each tile width
-REACHABLE = ([(1, 64, c) for c in kernel.CLUSTERS]
-             + [(1, n, 1) for n in kernel.TILE_WIDTHS[1:]]
-             + [(2, n, 1) for n in kernel.TILE_WIDTHS])
+# every (warpgroups, N) that kernel.geometry can pick: one warpgroup with
+# each tile width, and two warpgroups (64-row tiles above one wave) with
+# each tile width
+REACHABLE = [(wg, n) for wg in (1, 2) for n in kernel.TILE_WIDTHS]
 
 
 def _shape_for(geom, sms):
     """An (N, M, I) for which kernel.geometry picks ``geom`` on ``sms``
-    SMs, ragged on every axis: M inside the tile width (37, 100 or 200);
-    300 transactions (five 64-row tiles, the last of 44) and an item axis
-    of as many slabs as the cluster has CTAs, the last one half full, for
-    the 64-wide tiles; for the wider ones enough 64-row tiles to fill
-    three quarters of a wave (64 x sms + 37 transactions for two
-    warpgroups), over one and a half slabs."""
-    warpgroups, n, cluster = geom
+    SMs, ragged on every axis: M inside the tile width (37, 100 or 200),
+    an item axis of one and a half slabs; 300 transactions (five 64-row
+    tiles, the last of 44) for the 64-wide tiles, enough 64-row tiles to
+    fill three quarters of a wave for the wider ones, and 64 x sms + 37
+    transactions for two warpgroups."""
+    warpgroups, n = geom
     M = {64: 37, 128: 100, 256: 200}[n]
     if warpgroups == 2:
         return 64 * sms + 37, M, 192
     if n > 64:
         return 64 * -(-3 * sms // 4) - 27, M, 192
-    return 300, M, kernel.SLAB * cluster - 64
+    return 300, M, 192
 
 
 def _geom_id(geom):
-    return "wg{}-n{}-cluster{}".format(*geom)
+    return "wg{}-n{}".format(*geom)
 
 
 @pytest.mark.parametrize("sms", [114, kernel.H100_SMS])
 @pytest.mark.parametrize("geom", REACHABLE, ids=_geom_id)
 def test_every_reachable_support_count_geometry_has_a_shape(geom, sms):
-    assert tuple(kernel.geometry(*_shape_for(geom, sms), sms))[:3] == geom
+    assert tuple(kernel.geometry(*_shape_for(geom, sms), sms))[:2] == geom
 
 
 @pytest.mark.cuda
@@ -130,6 +126,6 @@ def test_int8_support_count_equals_plain_version_at_every_geometry(card,
                                                                    geom):
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     shape = _shape_for(geom, sms)
-    assert tuple(kernel.geometry(*shape, sms))[:3] == geom
+    assert tuple(kernel.geometry(*shape, sms))[:2] == geom
     want = _held(*_inputs(*shape, 5, card))
     assert int(want[0]) == shape[0]

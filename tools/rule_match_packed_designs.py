@@ -13,9 +13,12 @@ Three steps, in one call on the card:
    packed kernels with);
 3. the designs, at [64 x 896 x 32 words], [8 x 896 x 32] (serving's
    buckets against the dense mine's index), [64 x 4,096 x 32] and [64 x
-   16,384 x 32] (wider indexes): (a) the shipped kernel (``csrc/rule_match_packed.cu``, b1
-   ``wgmma``) at both layouts, queries on M and rules on M, and each
-   cluster its rows allow; (b) the CUDA-core design
+   16,384 x 32] (wider indexes): (a) the b1 ``wgmma`` kernel at the
+   layout that ``csrc/rule_match_packed.cu`` ships (the rules on M, one
+   warpgroup of 64 a CTA) and at those it left out (the queries on M,
+   two warpgroups of rules), all built from
+   ``tools/rule_match_packed_layouts.cu``, and the shipped kernel itself
+   through its wrapper; (b) the CUDA-core design
    (``tools/rule_match_packed_cuda_cores.cu``); and any other source with
    that design's C entry point (``rule_match_packed_launch(Qw, Aw, sizes,
    conf, out, B, R, W, stream)``, e.g. a parent commit's
@@ -148,19 +151,32 @@ def cuda_core_source(name, path):
     return run
 
 
-def launch(Qw, Aw, sizes, conf, geom):
-    """One launch of the shipped kernel at ``geom``."""
-    _, fn = fused._launcher()
-    B, W = Qw.shape
-    out = torch.empty((B, Aw.shape[0]), dtype=torch.float32,
-                      device=Qw.device)
-    err = fn(Qw.data_ptr(), Aw.data_ptr(), sizes.data_ptr(), conf.data_ptr(),
-             out.data_ptr(), B, Aw.shape[0], W, int(geom.rules_on_m),
-             geom.warpgroups, geom.n, geom.cluster,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{geom}: CUDA error {err}")
-    return out
+def layouts_source():
+    """A launcher for every layout of the b1 kernel, built from
+    ``tools/rule_match_packed_layouts.cu``: ``run(Qw, Aw, sizes, conf,
+    geom)`` with ``geom`` an int8 rule-match ``Geometry``."""
+    lib = OUT_DIR / "librule_match_packed_layouts.so"
+    rc, log = nvcc(lib, TOOLS / "rule_match_packed_layouts.cu")
+    if rc:
+        raise RuntimeError(f"nvcc failed for rule_match_packed_layouts.cu:"
+                           f"\n{log}")
+    fn = ctypes.CDLL(str(lib)).rule_match_packed_layouts_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(Qw, Aw, sizes, conf, geom):
+        B, W = Qw.shape
+        out = torch.empty((B, Aw.shape[0]), dtype=torch.float32,
+                          device=Qw.device)
+        err = fn(Qw.data_ptr(), Aw.data_ptr(), sizes.data_ptr(),
+                 conf.data_ptr(), out.data_ptr(), B, Aw.shape[0], W,
+                 int(geom.rules_on_m), geom.warpgroups, geom.n, geom.cluster,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{geom}: CUDA error {err}")
+        return out
+    return run
 
 
 def layouts(B, R):
@@ -225,6 +241,7 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assembles = probe()
     found = rates(sms) if assembles else {}
+    launch = layouts_source() if assembles else None
     others = {"(b) CUDA cores": cuda_core_source(
         "cuda_cores", TOOLS / "rule_match_packed_cuda_cores.cu")}
     for spec in args.extra:
@@ -239,10 +256,11 @@ def main(argv=None) -> int:
         designs = {}
         if assembles:
             designs.update({
-                "(a) b1 wgmma, " + g.describe(B, R, 4 * W)
-                + (" [picked]" if g == picked else ""):
+                "(a) b1 wgmma, " + g.describe(B, R, 4 * W):
                 (lambda g=g: launch(Qw, Aw, sizes, conf, g))
                 for g in layouts(B, R)})
+            designs["(a) b1 wgmma shipped, " + picked.describe(B, R)] = (
+                lambda: fused.rule_scores_packed(Qw, Aw, sizes, conf))
         designs.update({name: (lambda run=run: run(Qw, Aw, sizes, conf))
                         for name, run in others.items()})
         for name, fn in designs.items():

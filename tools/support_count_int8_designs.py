@@ -3,18 +3,14 @@ round's shape, beside the kernel it replaced and ``torch._int_mm``.
 
 ``src/repro_torch/csrc/support_count_int8.cu`` takes a geometry at launch:
 consumer warpgroups a CTA (64 transactions each), candidates a tile (64,
-128 or 256), a cluster of 1, 2, 4 or 8 CTAs splitting the item axis, and
-the slabs its ring keeps in flight.  ``kernel.geometry`` picks one a shape.
-This script launches every geometry at the dense mine's four counting
-rounds, one transaction tile [3,128 x 1,024] against M = 2,176, 256, 128
-and 128 candidates (so three shapes), and at a short tile [512 x 1,024]
-against 128 candidates (the tile of a corpus cut into more pieces, or of
-a micro-batch: there 64-wide tiles make 16 CTAs, and ``geometry`` splits
-the item axis over a cluster), holds each launch exactly equal to the
-plain version, and times them in turns over several rounds (each
-round's order the reverse of the last), with ``torch._int_mm`` plus the
-compare and sum and any other source with the kernel's first C entry
-point (``support_count_int8_launch(T, C, sizes, out, N, M, I, stream)``,
+128 or 256), and the slabs its ring keeps in flight.  ``kernel.geometry``
+picks one a shape.  This script launches every geometry at the dense
+mine's four counting rounds, one transaction tile [3,128 x 1,024] against
+M = 2,176, 256, 128 and 128 candidates (so three shapes), holds each
+launch exactly equal to the plain version, and times them in turns over
+several rounds (each round's order the reverse of the last), with
+``torch._int_mm`` plus the compare and sum and any other source with the
+kernel's first C entry point (``support_count_int8_launch(T, C, sizes, out, N, M, I, stream)``,
 e.g. a parent commit's ``support_count_int8.cu`` written under
 ``build/`` first).  Needs an NVIDIA H100 and the CUDA toolkit:
 
@@ -45,8 +41,8 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "build" / "support_count_int8_designs"
 ITEMS = 1024
 # (transactions, candidates): one of the dense mine's 32 tiles against a
-# round's candidates (k = 2, 3, then 4 and 5), and a short tile
-SHAPES = ((3128, 2176), (3128, 256), (3128, 128), (512, 128))
+# round's candidates (k = 2, 3, then 4 and 5)
+SHAPES = ((3128, 2176), (3128, 256), (3128, 128))
 LAUNCHES = 100                  # launches a timing, queued behind a spin
 
 
@@ -56,8 +52,8 @@ def launch(T, C, sizes, geom):
     N, I = T.shape
     out = torch.zeros(C.shape[0], dtype=torch.int32, device=T.device)
     err = fn(T.data_ptr(), C.data_ptr(), sizes.data_ptr(), out.data_ptr(),
-             N, C.shape[0], I, geom.warpgroups, geom.n, geom.cluster,
-             geom.stages, torch.cuda.current_stream().cuda_stream)
+             N, C.shape[0], I, geom.warpgroups, geom.n, geom.stages,
+             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{geom}: CUDA error {err}")
     return out
@@ -91,22 +87,17 @@ def other_source(name, path):
     return run
 
 
-def geometries(N, M, sms):
-    """Every geometry the kernel takes at [N, ITEMS] x [M, ITEMS]: each
-    warpgroup count, tile width and cluster (one that divides the slabs,
-    and, above 1, with no more CTAs than two waves), with the ring
-    ``geometry`` would give it and with 2 stages."""
+def geometries():
+    """Every geometry the kernel takes at an item axis of ITEMS: each
+    warpgroup count and tile width, with the ring ``geometry`` would give
+    it and with 2 stages."""
     slabs = -(-ITEMS // kernel.SLAB)
     out = []
     for wg in (1, 2):
         for n in kernel.TILE_WIDTHS:
-            tiles = -(-N // (64 * wg)) * -(-M // n)
-            for cs in kernel.CLUSTERS:
-                if slabs % cs or (cs > 1 and tiles * cs > 2 * sms):
-                    continue
-                full = min(slabs // cs, kernel.max_stages(wg, n))
-                for stages in sorted({full, min(2, full)}):
-                    out.append(kernel.Geometry(wg, n, cs, stages))
+            full = min(slabs, kernel.max_stages(wg, n))
+            for stages in sorted({full, min(2, full)}):
+                out.append(kernel.Geometry(wg, n, stages))
     return out
 
 
@@ -173,8 +164,8 @@ def main(argv=None) -> int:
         designs = {g.describe(N, M, ITEMS)
                    + (" [picked]" if g == picked else ""):
                    (lambda g=g: launch(T, C, sizes, g))
-                   for g in geometries(N, M, sms)}
-        if picked not in geometries(N, M, sms):
+                   for g in geometries()}
+        if picked not in geometries():
             designs[picked.describe(N, M, ITEMS) + " [picked]"] = (
                 lambda: launch(T, C, sizes, picked))
         designs.update({name: (lambda run=run: run(T, C, sizes))
