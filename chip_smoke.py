@@ -10,29 +10,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. build all eight kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
-   path gives it (one transaction tile × the k=2 candidate batch; the
-   int8 kernel also at the later rounds' 256 and 128 candidates) and at a
-   few ragged shapes, and require exact equality with its plain PyTorch
-   version; time an empty launch (``torch.cuda._sleep(0)``, the launch
-   floor printed beside every kernel under 0.01 ms); time the kernel, the
-   plain version and, for the int8 kernel, ``torch._int_mm`` plus the
-   compare-and-sum (a yardstick the port never calls), the int8 kernel at
-   each round's shape with the launch geometry it took, and the packed
-   kernel's bound at the binary tensor cores' rate (``B1_OPS_PER_S``) and
-   at the CUDA cores' popcounts; then hold the intersect kernel (the Eclat
-   plane's) exactly
-   against its plain version on random words, bit 31 included, at the
-   shapes the vertical plane gives it (a dense-corpus tile, a sparse-corpus
-   k=1 tile, a whole k=2 slab) and ragged ones, and time it at the first
-   three;
+   path gives it (one transaction tile × the k=2 candidate batch, and the
+   later rounds' 256 and 128 candidates) and at a few ragged shapes (rows
+   of 4 words for the packed kernel among them), and require exact
+   equality with its plain PyTorch version; time an empty launch
+   (``torch.cuda._sleep(0)``, the launch floor printed beside every kernel
+   under 0.01 ms); time the kernel, the plain version and, for the int8
+   kernel, ``torch._int_mm`` plus the compare-and-sum (a yardstick the
+   port never calls), both kernels at each round's shape with the launch
+   geometry each took, and the packed kernel's bound at the binary tensor
+   cores' rate (``B1_OPS_PER_S``) and at the CUDA cores' popcounts; then
+   hold the intersect kernel (the Eclat plane's) exactly against its
+   plain version on random words, bit 31 included, at the shapes the
+   vertical plane gives it (a dense-corpus tile, a sparse-corpus k=1 tile,
+   a whole k=2 slab) and ragged ones, and time it at the first three with
+   the launch geometry it took;
 3. mine a corpus at the scale of IBM Quest T10I4D100K (100,000
    transactions over 1,000 items, min_support 1%) three times — through
    the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref`` data
    plane — and require equal supports and rules, launches of each kernel
    on its path, one device-to-host read per counting round, and supports
-   that numpy recounts exactly; print the int8 kernel's time over the
-   ``mxu`` mine (its launches at each round's shape times that shape's
-   time) beside the mine's wall;
+   that numpy recounts exactly; print each support-count kernel's time
+   over its mine (its launches at each round's shape times that shape's
+   time, an estimate) beside the mine's wall;
 4. mine the same corpus through ``make_miner`` with ``algorithm="eclat"``
    on the intersect kernel and on the plain ``ref`` plane, and with
    ``algorithm="auto"``, and require the apriori mine's supports and
@@ -1160,16 +1160,19 @@ def main() -> int:
         check(kernel.support_count_int8(t, c, s),
               kernel.support_count_int8_plain(t, c, s),
               f"support_count_int8 [{n}, {m}, {i}]")
-    # the int8 kernel at the later rounds' shapes: the first 256 and 128
+    # both kernels at the later rounds' shapes: the first 256 and 128
     # candidates of the k=2 batch
     if M != ROUND_M[0]:
         raise AssertionError(f"the k=2 batch pads to {M}, not {ROUND_M[0]}")
     for m in ROUND_M[1:]:
+        check(fused.support_count_packed(Tw, Cw[:m], sizes[:m]),
+              fused.support_count_packed_plain(Tw, Cw[:m], sizes[:m]),
+              f"support_count_packed [{N}, {m}, {W} words]")
         check(kernel.support_count_int8(Ti, Ci[:m], sizes[:m]),
               kernel.support_count_int8_plain(Ti, Ci[:m], sizes[:m]),
               f"support_count_int8 [{N}, {m}, {I}]")
     print("kernels match their plain versions exactly (main-path shape, "
-          "the int8 kernel at every round's shape, 3 ragged shapes)")
+          "both at every round's shape, 3 ragged shapes)")
 
     # an empty kernel queued behind others: the least a launch costs
     floor_ms = _cuda_ms(torch, lambda: torch.cuda._sleep(0))
@@ -1220,6 +1223,23 @@ def main() -> int:
     print(f"packed on CUDA cores' popcounts ({props.multi_processor_count} "
           f"SMs at {clock_hz / 1e6:.0f} MHz) would take at least "
           f"{cuda_core_ms:.4f} ms")
+
+    # the packed kernel at each round's shape, beside its bound
+    timing["packed"]["rounds"] = {}
+    for m in ROUND_M:
+        bnd = {"operations": N * m * W * 32 / B1_OPS_PER_S * 1e3,
+               "bytes": (N * W * 4 + m * W * 4 + 2 * m * 4) / HBM_BW * 1e3}
+        by = max(bnd, key=bnd.get)
+        geom = fused.geometry(N, m, W, props.multi_processor_count)
+        row = dict(
+            ms=_cuda_ms(torch, lambda: fused.support_count_packed(
+                Tw, Cw[:m], sizes[:m])),
+            bound_ms=bnd[by], bound_by=by,
+            geometry=geom.describe(N, m, W))
+        timing["packed"]["rounds"][m] = row
+        print(f"packed [{N}, {m}, {W} words]: kernel {row['ms']:.4f} ms"
+              f"{vs_floor(row['ms'])}, bound {row['bound_ms']:.5f} ms "
+              f"({by}); launch: {row['geometry']}")
 
     # the int8 kernel at each round's shape, beside _int_mm and its bound
     timing["int8"]["rounds"] = {}
@@ -1278,14 +1298,17 @@ def main() -> int:
         bnd = {"bytes": (2 * m * w * 4 + 4 * m) / HBM_BW * 1e3,
                "operations": m * w / popc_per_s * 1e3}
         by = max(bnd, key=bnd.get)
+        geom = intersect.geometry(w)
         out = dict(
             ms=_cuda_ms(torch, lambda: intersect.intersect_count_words(a, b)),
             plain_ms=_cuda_ms(torch, lambda: intersect.intersect_count_plain(
                 a, b), reps=3),
-            library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[m, w])
+            library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[m, w],
+            geometry=geom.describe(m, w))
         print(f"intersect [{m}, {w}]: kernel {out['ms']:.4f} ms"
               f"{vs_floor(out['ms'])}, plain {out['plain_ms']:.4f} ms, "
-              f"bound {out['bound_ms']:.5f} ms ({by})")
+              f"bound {out['bound_ms']:.5f} ms ({by}); launch: "
+              f"{out['geometry']}")
         return out
 
     timing["intersect"] = time_intersect(*ix_inputs["tile"])
@@ -1353,25 +1376,27 @@ def main() -> int:
     if launches["packed"] != launches["int8"]:
         raise AssertionError("both variants must count the same tiles")
 
-    # the int8 kernel over the mxu mine, estimated: its launches at each
-    # round's shape times that shape's time alone (phase 2); not a
-    # measurement of the mine, so it stays off the kernels line
-    per_shape = {}
-    for r in mxu.report.rounds:
-        if r.m_padded:
-            per_shape[r.m_padded] = per_shape.get(r.m_padded, 0) + N_TILES
-    if sum(per_shape.values()) != on_mxu["int8"] or any(
-            m not in timing["int8"]["rounds"] for m in per_shape):
-        raise AssertionError(f"the mxu mine launched the int8 kernel at "
-                             f"{per_shape}, {on_mxu['int8']} in all")
-    kernel_ms = sum(n * timing["int8"]["rounds"][m]["ms"]
-                    for m, n in per_shape.items())
-    print("int8 kernel over the mxu mine, launches x time a launch alone "
-          "(an estimate, not a measurement): "
-          + " + ".join(f"{n} x {timing['int8']['rounds'][m]['ms']:.4f} ms "
-                       f"(M {m})" for m, n in per_shape.items())
-          + f" = {kernel_ms:.3f} ms, beside the mine's "
-          f"{walls['apriori mxu']:.3f} s wall")
+    # each kernel over its mine, estimated: its launches at each round's
+    # shape times that shape's time alone (phase 2); not a measurement of
+    # the mine, so it stays off the kernels line
+    for key, res, on, label in (("packed", packed, on_packed, "packed"),
+                                ("int8", mxu, on_mxu, "mxu")):
+        per_shape = {}
+        for r in res.report.rounds:
+            if r.m_padded:
+                per_shape[r.m_padded] = per_shape.get(r.m_padded, 0) + N_TILES
+        rounds = timing[key]["rounds"]
+        if sum(per_shape.values()) != on[key] or any(
+                m not in rounds for m in per_shape):
+            raise AssertionError(f"the {label} mine launched the {key} "
+                                 f"kernel at {per_shape}, {on[key]} in all")
+        kernel_ms = sum(n * rounds[m]["ms"] for m, n in per_shape.items())
+        print(f"{key} kernel over the {label} mine, launches x time a "
+              "launch alone (an estimate, not a measurement): "
+              + " + ".join(f"{n} x {rounds[m]['ms']:.4f} ms (M {m})"
+                           for m, n in per_shape.items())
+              + f" = {kernel_ms:.3f} ms, beside the mine's "
+              f"{walls['apriori ' + label]:.3f} s wall")
 
     for name, res in (("mxu", mxu), ("ref", ref)):
         if res.supports != packed.supports or res.rules != packed.rules:

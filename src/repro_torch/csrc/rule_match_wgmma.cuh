@@ -72,16 +72,6 @@ size_t smem_bytes(int stages) {
 template <bool kBits>
 using SizeT = typename std::conditional<kBits, int, float>::type;
 
-template <int N, bool kBits>
-__device__ __forceinline__ void wgmma_step(int (&d)[N / 2], uint64_t a,
-                                           uint64_t b) {
-  if constexpr (kBits) {
-    wgmma_b1<N>(d, a, b, 1);
-  } else {
-    wgmma_s8<N>(d, a, b, 1);
-  }
-}
-
 template <class S>
 __device__ __forceinline__ float weight(int dot, S size, float conf) {
   return static_cast<float>(static_cast<S>(dot) == size) * conf;

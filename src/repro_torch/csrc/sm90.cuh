@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's TMA and wgmma kernels:
 // flash_attention.cu and wkv6.cu take the mbarrier, fence and tensor-map
 // helpers (with their own 4-d / 3-d TMA loads, descriptors and maps); the
-// integer wgmma kernels, rule_match_int8.cu, rule_match_packed.cu (through
-// rule_match_wgmma.cuh) and support_count_int8.cu, take all of it.
+// integer wgmma kernels, rule_match_int8.cu and rule_match_packed.cu
+// (through rule_match_wgmma.cuh) and support_count_int8.cu and
+// support_count_packed.cu (through support_count_wgmma.cuh), take all of
+// it.
 //
 // - mbarriers and TMA: one thread copies a 2-d box of a tensor map into
 //   shared memory and the copy completes its bytes on an mbarrier;
@@ -11,7 +13,8 @@
 //   apart;
 // - wgmma m64nNk32 s8 x s8 -> s32 (wgmma_s8) and m64nNk256 b1 AND-popc ->
 //   s32 (wgmma_b1).  A k32 s8 step and a k256 b1 step both read 32 bytes
-//   of a row, so one descriptor, advanced 32 bytes a step, serves both;
+//   of a row, so one descriptor, advanced 32 bytes a step, serves both,
+//   and wgmma_step picks the instruction from a template flag;
 // - libcuda's cuTensorMapEncodeTiled, found through the runtime, so
 //   the libraries need no link against libcuda.
 
@@ -276,6 +279,18 @@ REPRO_WGMMA_INT(32)
 REPRO_WGMMA_INT(64)
 REPRO_WGMMA_INT(128)
 REPRO_WGMMA_INT(256)
+
+// d (+)= one 32-byte step of A and B: the int8 product (kBits false) or
+// the AND-popcount of 256 bits (kBits true)
+template <int N, bool kBits>
+__device__ __forceinline__ void wgmma_step(int (&d)[N / 2], uint64_t a,
+                                           uint64_t b) {
+  if constexpr (kBits) {
+    wgmma_b1<N>(d, a, b, 1);
+  } else {
+    wgmma_s8<N>(d, a, b, 1);
+  }
+}
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,

@@ -121,3 +121,36 @@ def test_loader_builds_the_intersect_source():
     p = loader.library_path("intersect_count")
     assert p.parent == loader.BUILD_DIR
     assert p != loader.library_path("support_count_packed")
+
+
+# (M, W) -> the threads that own a row and the launch: 512 at the dense
+# tile, the whole k = 2 slab and the retail tile; a warp for rows of at
+# most 128 quads (ragged M and W included), 512 past them
+INTERSECT_GEOMETRIES = {
+    (128, 3200): (512, "128 CTAs of 512 threads, 2 loads"),
+    (2176, 3200): (512, "2176 CTAs of 512 threads, 2 loads"),
+    (640, 2816): (512, "640 CTAs of 512 threads, 2 loads"),
+    (1, 4): (32, "1 CTAs of 256 threads, 1 loads"),
+    (129, 4): (32, "17 CTAs of 256 threads, 1 loads"),
+    (1, 516): (512, "1 CTAs of 512 threads, 1 loads"),
+    (129, 516): (512, "129 CTAs of 512 threads, 1 loads"),
+    (129, 512): (32, "17 CTAs of 256 threads, 4 loads"),
+    (128, 128): (32, "16 CTAs of 256 threads, 1 loads"),
+}
+
+
+@pytest.mark.parametrize("shape", list(INTERSECT_GEOMETRIES), ids=str)
+def test_intersect_launch_geometry(shape):
+    threads, launch = INTERSECT_GEOMETRIES[shape]
+    geom = intersect.geometry(shape[1])
+    assert geom.row_threads == threads
+    assert launch in geom.describe(*shape)
+
+
+def test_intersect_geometry_fits():
+    """Every row length gets a width the kernel is built for: a warp up to
+    WARP_ROW_QUADS quads a row, 512 threads past it."""
+    for W in (4, 8, 128, 508, 512, 516, 2816, 3200, 100_000):
+        t = intersect.geometry(W).row_threads
+        assert t in intersect.ROW_THREADS
+        assert (t == 32) == (W // 4 <= intersect.WARP_ROW_QUADS)

@@ -14,10 +14,10 @@ from repro_torch.kernels import loader  # noqa: E402
 INCLUDES = {
     "flash_attention": {"sm90.cuh"},
     "wkv6": {"sm90.cuh"},
-    "support_count_int8": {"sm90.cuh"},
+    "support_count_int8": {"support_count_wgmma.cuh", "sm90.cuh"},
+    "support_count_packed": {"support_count_wgmma.cuh", "sm90.cuh"},
     "rule_match_int8": {"rule_match_wgmma.cuh", "sm90.cuh"},
     "rule_match_packed": {"rule_match_wgmma.cuh", "sm90.cuh"},
-    "support_count_packed": set(),
     "intersect_count": set(),
     "selective_scan": set(),
 }
@@ -35,7 +35,8 @@ def test_every_source_is_listed():
     assert {p.stem for p in loader.CSRC.glob("*.cu")} == set(INCLUDES)
 
 
-@pytest.mark.parametrize("header", ["sm90.cuh", "rule_match_wgmma.cuh"])
+@pytest.mark.parametrize("header", ["sm90.cuh", "rule_match_wgmma.cuh",
+                                    "support_count_wgmma.cuh"])
 def test_a_header_edit_renames_only_its_includers(monkeypatch, tmp_path,
                                                   header):
     csrc = tmp_path / "csrc"

@@ -262,3 +262,56 @@ def test_int8_support_count_max_stages_fill_shared_memory():
                 kernel.SMEM_LIMIT
             assert s == kernel.MAX_STAGES or kernel.Geometry(
                 wg, n, s + 1).smem_bytes() > kernel.SMEM_LIMIT
+
+
+# (N, M, W) -> the packed kernel's launch on 132 SMs, as (tiles a CTA,
+# stages), and its CTA count: tiles of 64 x 64 throughout; the dense
+# mine's k = 2 round walks four transaction tiles a CTA (442 CTAs, under 4
+# an SM) through a ring of two, its later rounds (M 256, 128) one; B11's
+# tiles of 512 transactions over 4 words; a 100,000-row corpus walks 128
+# tiles a CTA; rows of two slabs take a ring of two
+PACKED_GEOMETRIES = {
+    (3128, 2176, 32): ((4, 2), 442),
+    (3128, 256, 32): ((1, 1), 196),
+    (3128, 128, 32): ((1, 1), 98),
+    (512, 128, 4): ((1, 1), 16),
+    (512, 2176, 4): ((1, 1), 272),
+    (512, 8, 4): ((1, 1), 8),
+    (100_000, 2176, 32): ((128, 2), 442),
+    (3128, 2176, 64): ((4, 2), 442),
+    (300, 37, 64): ((1, 2), 5),
+    (1, 3, 4): ((1, 1), 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(PACKED_GEOMETRIES), ids=str)
+def test_packed_support_count_launch_geometry(shape):
+    want, ctas = PACKED_GEOMETRIES[shape]
+    N, M, W = shape
+    geom = fused.geometry(N, M, W)
+    assert (geom.tiles, geom.stages(N, W)) == want
+    assert f"= {ctas} CTAs" in geom.describe(N, M, W)
+
+
+@pytest.mark.parametrize("sms", [8, 114, 132])
+def test_packed_support_count_geometry_fits(sms):
+    """Over ragged shapes every pick fits the kernel: a CTA walks the
+    fewest tiles (a power of two) that keep its CTAs at CTAS_PER_SM an SM
+    or under, or every tile, and under 4,096 tiles (its hit counters'
+    limit); a ring of two stages where it reads more than one slab, else
+    one."""
+    for N in (1, 63, 64, 65, 512, 3128, 8485, 100_000, 65535 * 128 + 1):
+        for M in (1, 37, 64, 65, 128, 129, 256, 257, 2176):
+            for W in (4, 8, 32, 64, 128):
+                g = fused.geometry(N, M, W, sms)
+                t_tiles, c_tiles = -(-N // 64), -(-M // 64)
+                limit = fused.CTAS_PER_SM * sms
+                assert g.tiles & (g.tiles - 1) == 0
+                assert -(-t_tiles // g.tiles) * c_tiles <= limit or \
+                    g.tiles >= min(t_tiles, fused.MAX_TILES)
+                if g.tiles > 1:
+                    assert -(-t_tiles // (g.tiles // 2)) * c_tiles > limit
+                walked = -(-t_tiles // min(-(-t_tiles // g.tiles),
+                                           kernel.MAX_GRID_Y))
+                assert walked < 4096
+                assert g.stages(N, W) == min(-(-W // 32) * walked, 2)
