@@ -70,7 +70,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    for the first 512 baskets; print each serve's wall, the part spent in
    scoring calls and in garbage-collector pauses, and the host functions
    with the most own time in one more (profiled) serve per kernel path;
-7. the LM serving path: hold the flash-attention kernel against its plain
+7. mine the dense corpus out of core, in 4 partitions of 25,000
+   transactions on disk, through ``make_miner(son=SONConfig(...))`` three
+   times — Apriori on the ``packed`` kernel, Eclat (the intersect kernel
+   in pass 1, the packed one in pass 2's re-count) and Apriori on the
+   ``mxu`` kernel — and require phase 3's supports and rules, launches of
+   each path's kernels and no other, and one device-to-host read per
+   re-count chunk; kill a mine at the first re-count boundary and require
+   its resume to give the same answer; save the rule index, load it back
+   and require phase 5's arrays and phase 6's recommendations from it;
+   print each wall, the ledger's host time by pass, the spill, load and
+   checkpoint times and bytes, and the card's name and power limit;
+8. the LM serving path: hold the flash-attention kernel against its plain
    version (2e-5 in float32, 2e-2 in bf16) at gemma3-1b's head shape
    [4, 2048, 4/1, 256] with windows 512 and 0 in both types, hymba-1.5b's
    [1, 2048, 25/5, 64] with window 1024 in both types and its prefill's
@@ -88,7 +99,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    attention over the KV cache, no kernel) within a relative 1e-3, with
    equal argmax tokens; run ``serve_demo(smoke=False)`` twice and require
    identical in-range greedy tokens and no kernel launch;
-8. the hymba-1.5b serving path: hold the selective-scan kernel against
+9. the hymba-1.5b serving path: hold the selective-scan kernel against
    its plain version (atol 1e-4; 1e-3 under extreme decay) at the
    prefill's shape [4, 2048, 3200, 16], the smoke shape, N 4, a ragged
    T, one step and extreme decay; time it at the prefill's shape beside
@@ -105,7 +116,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    equal argmax tokens; run ``serve_demo("hymba-1.5b", smoke=False)``
    twice and require identical in-range greedy tokens and no kernel
    launch;
-9. the rwkv6-7b serving path: hold the wkv6 kernel against its plain
+10. the rwkv6-7b serving path: hold the wkv6 kernel against its plain
    version (atol 5e-4 with a non-zero initial state; 1e-3 under extreme
    decay) at the prefill's shape [4, 2048, 64, 64], the smoke head size
    16, head sizes 32 and 8, a ragged T, one step and extreme decay, and
@@ -121,7 +132,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    1e-3, with equal argmax tokens; run ``serve_demo("rwkv6-7b",
    smoke=False)`` twice and require identical in-range greedy tokens and
    no kernel launch;
-10. print the card's name and power limit, the ``kernels`` JSON line and,
+11. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -175,6 +186,9 @@ ROUTER_REPS_DENSE = 11
 ROUTER_REPS_B11 = 41
 BOOTSTRAP_RESAMPLES = 2000   # for the ratio's 90% interval
 N_TILES = 32
+# SON's partitions of the dense corpus: 4 chunks, each mined at a local
+# threshold of 250 (floor(1,000 x 25,000 / 100,000))
+SON_PARTITION_ROWS = 25_000
 # hymba-1.5b's prefill [batch x tokens], and its parameter tree's size
 # (the reference's, by jax.eval_shape of its init_params; the config's
 # param_count() formula leaves out x_proj, dt_proj, dt_bias and the fuse
@@ -264,6 +278,151 @@ def host_profile(label: str, fn, *args) -> None:
         for (f, line, fn_name), (_, _, tt, _, _) in top))
 
 
+def son_phase(torch, dev, T_all, packed, index, queries, s_packed,
+              zero_counts, read_counts) -> dict:
+    """Phase 7: out-of-core SON mining of the dense corpus on the card.
+
+    Mines ``T_all`` in partitions of ``SON_PARTITION_ROWS`` through
+    ``make_miner(son=...)`` with Apriori (the packed kernel), Eclat (the
+    intersect kernel in pass 1, the packed one in pass 2) and Apriori on
+    the ``mxu`` kernel, each required to give the in-core mine's supports
+    and rules (``packed``) with one d2h a re-count chunk; kills a mine at
+    the first re-count boundary and resumes it; saves the rule index,
+    loads it back and serves ``queries`` through it, requiring
+    ``s_packed``.  Returns each kernel's launches per SON path."""
+    import tempfile
+
+    from repro_torch.mining import SONConfig, SONKilled, make_miner
+    from repro_torch.pipeline import PipelineConfig
+    from repro_torch.serving import (RecommendationEngine, RuleIndex,
+                                     ServingConfig)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def son_mine(workdir, label, son_kw=None, **kw):
+        """One SON path: counts zeroed just before, read just after; the
+        wall ends in a synchronise."""
+        cfg = PipelineConfig(min_support=MIN_SUPPORT, n_tiles=N_TILES,
+                             device=dev.type, **kw)
+        son = SONConfig(workdir=workdir, partition_rows=SON_PARTITION_ROWS,
+                        **(son_kw or {}))
+        zero_counts()
+        t0 = time.perf_counter()
+        miner, _ = make_miner(T_all, config=cfg, son=son)
+        res = miner.run(T_all)
+        sync()
+        wall = time.perf_counter() - t0
+        on = read_counts()
+        rep, led = res.report, res.report.ledger
+
+        def host(prefix):
+            return sum(p.host_time_s for p in led.phases
+                       if p.name.startswith(prefix))
+
+        recounts = [p for p in led.phases
+                    if p.name.startswith("son-recount-p")]
+        # the ledger times every phase of SON's own and the local mines'
+        # serial phases; their map rounds record no host time, so pass 1
+        # is the rest of the wall (with the density scan and host glue)
+        timed = {k: host(k) for k in ("son-recount-p", "son-spill-p",
+                                      "son-load-p", "son-ckpt-b",
+                                      "mba-rules")}
+        print(f"son {label}: {rep.n_partitions} partitions x "
+              f"{rep.partition_rows} rows, algorithm {rep.algorithm}, "
+              f"{len(res.supports)} itemsets, {len(res.rules)} rules, wall "
+              f"{wall:.3f} s; host time from the ledger: pass 2 (re-counts:"
+              f" densify, upload, count, one read a chunk) "
+              f"{timed['son-recount-p']:.3f} s, spills "
+              f"{timed['son-spill-p']:.3f} s, loads "
+              f"{timed['son-load-p']:.3f} s, checkpoints "
+              f"{timed['son-ckpt-b']:.3f} s ({rep.checkpoint_saves} saves, "
+              f"{rep.checkpoint_bytes} B), rules {timed['mba-rules']:.3f} "
+              f"s, pass 1's serial phases {host('son-p'):.3f} s; the rest, "
+              f"pass 1 with the density scan, "
+              f"{wall - sum(timed.values()):.3f} s; re-count d2h "
+              f"{[(p.name, p.syncs, p.d2h_bytes) for p in recounts]}; "
+              f"launches {on}")
+        # a resumed mine re-counts only the chunks its checkpoint lacks
+        todo = rep.n_partitions - max(0, rep.partitions_resumed
+                                      - rep.n_partitions)
+        if len(recounts) != todo or any(p.syncs != 1 for p in recounts):
+            raise AssertionError(f"son {label}: each re-count chunk must "
+                                 "read back once: "
+                                 f"{[(p.name, p.syncs) for p in recounts]}")
+        if res.supports != packed.supports or res.rules != packed.rules:
+            raise AssertionError(f"son {label} differs from the in-core mine")
+        return res, on, wall
+
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        apriori, on_apriori, out["wall_apriori_s"] = son_mine(
+            f"{wd}/apriori", "apriori (packed)")
+        _, on_eclat, out["wall_eclat_s"] = son_mine(
+            f"{wd}/eclat", "eclat", algorithm="eclat")
+        _, on_mxu, out["wall_mxu_s"] = son_mine(
+            f"{wd}/mxu", "apriori (mxu)", tuning={"variant": "mxu"})
+        # the Eclat local mines never run the packed kernel, so its
+        # launches in that path are pass 2's re-counts
+        if (on_apriori["packed"] <= 0 or on_eclat["intersect"] <= 0
+                or on_eclat["packed"] <= 0 or on_mxu["int8"] <= 0):
+            raise AssertionError("a SON path did not launch its kernels: "
+                                 f"{on_apriori}, {on_eclat}, {on_mxu}")
+        if (on_apriori["int8"] or on_apriori["intersect"]
+                or on_eclat["int8"] or on_mxu["packed"]
+                or on_mxu["intersect"]
+                or any(c[k] for c in (on_apriori, on_eclat, on_mxu)
+                       for k in ("rm_packed", "rm_int8", "flash", "scan",
+                                 "wkv"))):
+            raise AssertionError("a SON path launched another path's kernel")
+        out["launches"] = {"packed": on_apriori["packed"],
+                           "int8": on_mxu["int8"],
+                           "intersect": on_eclat["intersect"],
+                           "packed_in_eclat_pass2": on_eclat["packed"]}
+
+        # kill at the first re-count boundary, then resume
+        P = apriori.report.n_partitions
+        try:
+            son_mine(f"{wd}/kill", "killed", son_kw={"abort_after": P + 1})
+        except SONKilled as e:
+            if e.boundary != P + 1:
+                raise AssertionError(f"killed at boundary {e.boundary}, "
+                                     f"not {P + 1}") from e
+        else:
+            raise AssertionError("abort_after did not kill the mine")
+        resumed, _, out["wall_resumed_s"] = son_mine(
+            f"{wd}/kill", "resumed", son_kw={"resume": True})
+        if resumed.report.partitions_resumed != P + 1:
+            raise AssertionError(
+                f"resumed {resumed.report.partitions_resumed} partition "
+                f"passes, not {P + 1}")
+        print(f"son kill at boundary {P + 1} and resume: "
+              f"{resumed.report.partitions_resumed} partition passes "
+              "resumed, the same supports and rules")
+
+        # the rule index through the checkpoint store
+        built = RuleIndex.build(apriori.rules, index.n_items)
+        t0 = time.perf_counter()
+        built.save(f"{wd}/index")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = RuleIndex.load(f"{wd}/index")
+        load_s = time.perf_counter() - t0
+        if not (loaded.same_arrays(built) and loaded.same_arrays(index)):
+            raise AssertionError("the loaded rule index differs")
+        results, report = RecommendationEngine(
+            loaded, config=ServingConfig(device=dev.type)).serve(queries)
+        if results != s_packed:
+            raise AssertionError("the loaded index serves other "
+                                 "recommendations")
+        print(f"rule index saved in {save_s:.4f} s and loaded in "
+              f"{load_s:.4f} s ({loaded.nbytes} B of arrays); serving "
+              f"{report.n_queries} queries through it gives phase 6's "
+              "top-k items and scores")
+    return out
+
+
 def _live_pairs(S: int, window: int) -> int:
     """Σ over queries of the keys a causal (windowed) row attends to."""
     if window <= 0 or window >= S:
@@ -272,7 +431,7 @@ def _live_pairs(S: int, window: int) -> int:
 
 
 def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
-    """Phase 7: the flash kernel against its plain version and timed, then
+    """Phase 8: the flash kernel against its plain version and timed, then
     gemma3-1b at full width through make_prefill_step, the decode path and
     serve_demo.  Returns the kernel's row of the ``kernels`` line."""
     import torch.nn.functional as F
@@ -484,7 +643,7 @@ def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
 
 
 def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
-    """Phase 8: the selective-scan kernel against its plain version and
+    """Phase 9: the selective-scan kernel against its plain version and
     timed, then hymba-1.5b at full width through make_prefill_step, the
     decode path and serve_demo.  Returns the scan kernel's row of the
     ``kernels`` line and the flash kernel's timing at hymba's shape."""
@@ -741,7 +900,7 @@ def hymba_phase(torch, np, dev, zero_counts, read_counts) -> dict:
 
 
 def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
-    """Phase 9: the wkv6 kernel against its plain version and timed, then
+    """Phase 10: the wkv6 kernel against its plain version and timed, then
     rwkv6-7b at full width through make_prefill_step, the decode path and
     serve_demo.  Returns the kernel's row of the ``kernels`` line."""
     from repro_torch.configs.base import get_config
@@ -1846,24 +2005,31 @@ def main() -> int:
           f"{sum(map(bool, s_packed))} non-empty, the first {N_ORACLE} "
           "equal to recommend_bruteforce")
 
-    # ---- 7. the LM serving path (gemma3-1b at full width) --------------
+    # ---- 7. out-of-core SON mining of the dense corpus ----------------
+    son = son_phase(torch, dev, T_all, packed, index, queries, s_packed,
+                    zero_counts, read_counts)
+    print(f"son walls on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps({k: v for k, v in son.items() if k != "launches"}))
+    son_launches = son["launches"]
+
+    # ---- 8. the LM serving path (gemma3-1b at full width) --------------
     lm = lm_phase(torch, np, dev, zero_counts, read_counts)
     launches["flash"] = lm.pop("launches")
     err["flash"] = lm.pop("max_abs_err")
     timing["flash"] = lm
 
-    # ---- 8. the hymba-1.5b serving path (full width) -------------------
+    # ---- 9. the hymba-1.5b serving path (full width) -------------------
     timing["scan"], timing["flash"]["hymba"] = hymba_phase(
         torch, np, dev, zero_counts, read_counts)
     launches["scan"] = timing["scan"].pop("launches")
     err["scan"] = timing["scan"].pop("max_abs_err")
 
-    # ---- 9. the rwkv6-7b serving path (full width) ---------------------
+    # ---- 10. the rwkv6-7b serving path (full width) --------------------
     timing["wkv"] = rwkv_phase(torch, np, dev, zero_counts, read_counts)
     launches["wkv"] = timing["wkv"].pop("launches")
     err["wkv"] = timing["wkv"].pop("max_abs_err")
 
-    # ---- 10. result lines ---------------------------------------------
+    # ---- 11. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -1895,6 +2061,8 @@ def main() -> int:
                          max_abs_err=err[key], ok=True, **timing[key]))
         if rows[-1]["ms"] < 0.01:
             rows[-1]["launch_floor_ms"] = floor_ms
+        if key in son_launches:
+            rows[-1]["son_launches"] = son_launches[key]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

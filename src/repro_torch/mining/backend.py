@@ -61,14 +61,19 @@ def make_miner(baskets: Baskets,
     trail (``None`` when the algorithm was explicit).  The miner counts on
     ``config.device``: the card by default.
 
-    ``son`` (out-of-core SON mining) is not ported yet and raises.
+    ``son`` (a :class:`repro_torch.mining.son.SONConfig`) routes to the
+    out-of-core two-pass :class:`repro_torch.mining.son.SONMiner` instead —
+    the algorithm (including ``auto``, re-priced on the partition-sized
+    problem) resolves per run inside the miner, so the choice is returned
+    as ``None`` here and surfaced as ``miner.algorithm_choice`` after
+    ``run()``.
     """
     config = config or PipelineConfig()
     algorithm = resolve_algorithm(config.algorithm)
     if son is not None:
-        raise NotImplementedError(
-            "out-of-core SON mining (make_miner(son=...)) is not ported "
-            "yet: it comes with the checkpoint store (ROADMAP item 7)")
+        from repro_torch.mining.son import SONMiner
+        return SONMiner(profile=profile, config=config, son=son,
+                        policy=policy), None
     choice: Optional[AlgorithmChoice] = None
     if algorithm == "auto":
         # min_support resolves against the true tx count in every input

@@ -24,8 +24,8 @@ Rows are padded ("bucketed") to a multiple of ``r_bucket`` (kernel lanes)
 and items to 128 lanes, so every index built from the same corpus shape
 gives the kernels the same launch shape.
 
-Persistence (``save``/``load``) goes through a checkpoint store the port
-does not have yet; both raise until it is ported.
+Persistence (``save``/``load``) goes through the checkpoint store, one
+step per index version, in the reference package's format.
 """
 from __future__ import annotations
 
@@ -34,11 +34,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.core.rules import Rule
 
 _ARRAY_FIELDS = ("ante", "sizes", "conf", "lift", "support", "cons")
-_NO_STORE = ("RuleIndex.save/load need the checkpoint store, which the port "
-             "does not have yet (ROADMAP item 7, with SON)")
 
 
 @dataclass(frozen=True)
@@ -120,15 +119,30 @@ class RuleIndex:
                    n_rules=len(rules), n_items=n_items, version=version)
 
     # ------------------------------------------------------------------
-    # persistence: needs the checkpoint store, which is not ported yet
+    # persistence through the checkpoint store (atomic, manifest-driven)
     # ------------------------------------------------------------------
     def save(self, index_dir: str) -> str:
-        raise NotImplementedError(_NO_STORE)
+        """Write this index as checkpoint step ``version`` under index_dir."""
+        tree = {f: getattr(self, f) for f in _ARRAY_FIELDS}
+        extra = {"kind": "rule_index", "n_rows": self.n_rows,
+                 "n_rules": self.n_rules, "n_items": self.n_items,
+                 "version": self.version}
+        return ckpt_store.save(index_dir, self.version, tree, extra=extra)
 
     @classmethod
     def load(cls, index_dir: str,
              version: Optional[int] = None) -> "RuleIndex":
-        raise NotImplementedError(_NO_STORE)
+        if version is None:
+            version = ckpt_store.latest_step(index_dir)
+            if version is None:
+                raise FileNotFoundError(f"no rule index under {index_dir}")
+        flat, extra = ckpt_store.load_arrays(index_dir, version)
+        if extra.get("kind") != "rule_index":
+            raise ValueError(f"step {version} under {index_dir} is not a "
+                             "rule index checkpoint")
+        return cls(**{f: flat[f] for f in _ARRAY_FIELDS},
+                   n_rows=extra["n_rows"], n_rules=extra["n_rules"],
+                   n_items=extra["n_items"], version=extra["version"])
 
     # ------------------------------------------------------------------
     def same_arrays(self, other: "RuleIndex") -> bool:

@@ -43,7 +43,8 @@ from repro_torch.kernels.support_count.intersect import (  # noqa: E402
     intersect_count_words)
 from repro_torch.launch.tuning import shape_flops_bytes  # noqa: E402
 from repro_torch.mining import (AlgorithmCostModel, EclatMiner,  # noqa: E402
-                                local_min_support, make_miner,
+                                SONConfig, SONMiner, local_min_support,
+                                make_miner,
                                 partition_stats, select_algorithm,
                                 select_partition_algorithm)
 from repro_torch.pipeline import (MarketBasketPipeline,  # noqa: E402
@@ -440,7 +441,7 @@ def test_cpu_mines_launch_no_kernel():
 @pytest.mark.parametrize("case", ["costmodel_config", "costmodel_policy",
                                   "son", "unknown_algorithm",
                                   "unknown_data_plane", "cuda_on_cpu"])
-def test_refused(case):
+def test_refused(case, tmp_path):
     T = _dense_small(64, 16, 0)
     cpu = PipelineConfig(device="cpu")
     if case == "costmodel_config":
@@ -450,8 +451,12 @@ def test_refused(case):
         with pytest.raises(ValueError, match="not ported"):
             EclatMiner(config=cpu, policy="costmodel")
     elif case == "son":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make_miner(T, config=cpu, son=object())
+        # out-of-core SON is ported: make_miner routes son= to SONMiner
+        miner, choice = make_miner(T, config=cpu, son=SONConfig(
+            workdir=str(tmp_path), partition_rows=32))
+        assert isinstance(miner, SONMiner) and choice is None
+        assert miner.run(T).supports == MarketBasketPipeline(
+            config=cpu).run(T).supports
     elif case == "unknown_algorithm":
         with pytest.raises(ValueError, match="unknown mining algorithm"):
             PipelineConfig(device="cpu", algorithm="fpgrowth")

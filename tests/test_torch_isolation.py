@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor any module of the
-reference package, so it runs where jax is not installed."""
+reference package (nor msgpack, which the card's machine lacks), so it
+runs where they are not installed."""
 import os
 import re
 import subprocess
@@ -18,11 +19,17 @@ PORT = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?![A-Za-z0-9_])", re.M)
 
+# the port writes its checkpoints with its own msgpack codec
+_NO_MSGPACK = re.compile(r"^\s*(?:import|from)\s+msgpack(?![A-Za-z0-9_])",
+                         re.M)
+
 _MINE = r"""
 import sys
+import tempfile
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 sys.modules["repro"] = None
+sys.modules["msgpack"] = None
 from repro_torch.data.baskets import BasketConfig, generate_baskets
 from repro_torch.mining import make_miner
 from repro_torch.pipeline import MarketBasketPipeline, PipelineConfig
@@ -41,6 +48,17 @@ for algorithm in ("eclat", "auto"):
     assert mined.supports == res.supports and mined.rules == res.rules
     assert (choice is None) == (algorithm == "eclat")
     print("ALGORITHM", algorithm, mined.report.algorithm)
+from repro_torch.mining import SONConfig
+with tempfile.TemporaryDirectory() as wd:
+    son, _ = make_miner(T, config=PipelineConfig(
+        min_support=0.05, n_tiles=4, device="cpu"),
+        son=SONConfig(workdir=wd + "/son", partition_rows=100))
+    mined = son.run(T)
+    assert mined.supports == res.supports and mined.rules == res.rules
+    index = RuleIndex.build(res.rules, T.shape[1])
+    index.save(wd + "/index")
+    assert RuleIndex.load(wd + "/index").same_arrays(index)
+    print("SON", mined.report.n_partitions, mined.report.checkpoint_saves)
 import numpy as np
 import torch
 from repro_torch.configs.base import get_config
@@ -66,7 +84,7 @@ logits = make_prefill_step(cfg)(params, {"tokens": toks})
 assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
 print("RWKV", tuple(logits.shape))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
              and sys.modules[m] is not None)
 assert not bad, bad
 print("MINED", len(res.supports), len(res.rules), res.report.backend,
@@ -85,6 +103,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "SERVED (2, 4)" in out.stdout
     assert "HYBRID (2, 512)" in out.stdout
     assert "RWKV (2, 512)" in out.stdout
+    assert "SON 3 6" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -95,8 +114,11 @@ def test_no_source_imports_jax_or_reference():
         ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 20
     for part in ("models", "configs", "launch", "kernels/flash_attention",
-                 "kernels/selective_scan", "kernels/rwkv6_wkv"):
+                 "kernels/selective_scan", "kernels/rwkv6_wkv", "checkpoint",
+                 "mining"):
         assert PORT / part / "__init__.py" in files
+    for module in ("checkpoint/store.py", "mining/son.py"):
+        assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
-                 for f in files}
+                 + _NO_MSGPACK.findall(f.read_text()) for f in files}
     assert not {f: m for f, m in offenders.items() if m}
