@@ -132,7 +132,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    1e-3, with equal argmax tokens; run ``serve_demo("rwkv6-7b",
    smoke=False)`` twice and require identical in-range greedy tokens and
    no kernel launch;
-11. print the card's name and power limit, the ``kernels`` JSON line and,
+11. the streaming plane: hold both support-count kernels exactly against
+    their plain versions at the delta phase's shapes (slabs of 1, 5, 8,
+    1,000 and 1,024 rows against the tracked sets of the stream's first
+    and last windows, sized by one-shot mines) and time them beside the
+    launch floor; stream the dense corpus's first 40,000 rows, then
+    28,000 stationary ones, through ``StreamingMiner`` (window 20,000,
+    batches of 1,000) with a live ``RecommendationEngine`` three times —
+    the ``packed`` kernel, the ``mxu`` kernel and the plain ``ref`` plane
+    — and require equal state and reports (walls aside), the one-shot
+    mine's supports and rules over the final window, re-validations in
+    the churn segment and none in the last 3 batches, one d2h a delta
+    phase and a validation level, each support-count kernel on its own
+    path only, the engine holding the miner's index at monotone
+    versions, and 512 baskets of the final window (an item taken out of
+    each) served from it equal to ``recommend_bruteforce`` on
+    ``rule_match_packed``; print the churn
+    and steady batch walls, the refresh-to-visible latency, the tracked
+    sets and B10's comparison of a steady delta batch with a one-shot
+    re-mine of the window (printed, not enforced);
+12. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero and prints no result where no CUDA device is available,
@@ -145,6 +164,7 @@ import dataclasses
 import gc
 import json
 import pstats
+import re
 import subprocess
 import sys
 import time
@@ -207,6 +227,16 @@ REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
 N_ORACLE = 512             # of them checked against the brute-force oracle
 WIDE_RULES = 16_384        # rows of the wider index the kernels are timed on
+# phase 11's stream: the dense corpus's first 40,000 rows (Zipf noise, so
+# the lattice churns), then 28,000 stationary rows (a window and 8 batches
+# more), through a window of 20,000 (a fifth of T10I4D100K) in batches of
+# 1,000; the delta-phase kernels are held at slabs of these rows
+STREAM_CHURN_ROWS = 40_000
+STREAM_STEADY_ROWS = 28_000
+STREAM_WINDOW = 20_000
+STREAM_BATCH = 1_000
+STREAM_N_TILES = 8
+STREAM_DELTA_N = (1, 5, 8, 1000, 1024)
 # clocks the card spins before each timed loop, so that every timed launch
 # is queued before the first one starts (about 25 ms at 1,980 MHz)
 QUEUE_SLEEP_CYCLES = 50_000_000
@@ -253,14 +283,17 @@ def _cuda_ms(torch, fn, reps: int = REPS, queued: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+WALL_FIELDS = ("wall_time_s", "host_time_s", "wall_s", "refresh_latency_s")
+
+
 def _without_walls(x):
     """A report as plain values, without the fields that time this process
-    (``wall_time_s``, ``host_time_s``)."""
+    (``WALL_FIELDS``)."""
     if dataclasses.is_dataclass(x):
         x = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
     if isinstance(x, dict):
         return {k: _without_walls(v) for k, v in x.items()
-                if k not in ("wall_time_s", "host_time_s")}
+                if k not in WALL_FIELDS}
     if isinstance(x, (list, tuple)):
         return [_without_walls(v) for v in x]
     return x
@@ -420,6 +453,279 @@ def son_phase(torch, dev, T_all, packed, index, queries, s_packed,
               f"{load_s:.4f} s ({loaded.nbytes} B of arrays); serving "
               f"{report.n_queries} queries through it gives phase 6's "
               "top-k items and scores")
+    return out
+
+
+def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
+                 read_counts, churn_rows=STREAM_CHURN_ROWS,
+                 steady_rows=STREAM_STEADY_ROWS, window=STREAM_WINDOW,
+                 batch=STREAM_BATCH) -> dict:
+    """Phase 11: the streaming plane on the card.
+
+    Streams ``T_all[:churn_rows]`` then ``stationary_baskets(steady_rows)``
+    through ``StreamingMiner`` with a live ``RecommendationEngine`` three
+    times (the packed kernel, ``mxu``, the ``ref`` plane), after holding
+    both support-count kernels exactly against their plain versions at the
+    delta phase's shapes (slabs of 1 to 1,024 rows against the churn
+    segment's and the stationary tracked sets, sized from one-shot mines
+    of the first and the last window).  Requires equal state and reports
+    on all three paths, the one-shot mine's answer over the final window,
+    re-validations in the churn segment and none in the last 3 batches,
+    one d2h a delta phase and a validation level, each kernel on its own
+    path only, the engine holding the miner's index at monotone versions,
+    and ``N_ORACLE`` baskets of the final window, an item taken out of
+    each, served from it equal to the brute-force oracle on
+    ``rule_match_packed``.  Prints the walls and B10's delta
+    batch against a one-shot re-mine (printed, not enforced); returns the
+    launches and the delta-shape times."""
+    from repro_torch.data.baskets import pad_items, stationary_baskets
+    from repro_torch.kernels.support_count import fused, kernel
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.pipeline import MarketBasketPipeline
+    from repro_torch.serving import (Query, RecommendationEngine, RuleIndex,
+                                     ServingConfig, recommend_bruteforce)
+    from repro_torch.streaming import (StreamingConfig, StreamingMiner,
+                                       TransactionStream)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    S = np.vstack([T_all[:churn_rows],
+                   stationary_baskets(steady_rows, T_all.shape[1], seed=1)])
+    n_items = S.shape[1]
+    n_churn = churn_rows // batch              # batches of the churn segment
+    base = dict(window=window, batch_size=batch, min_support=MIN_SUPPORT,
+                min_confidence=0.6, n_tiles=STREAM_N_TILES, device=dev.type)
+    cfg = StreamingConfig(**base)
+
+    # ---- the delta shapes: slabs of batch rows against a tracked set ----
+    def tracked(rows):
+        """The candidates a validation of ``rows`` tracks (every level's,
+        the negative border included), from a one-shot mine's rounds."""
+        rep = MarketBasketPipeline(config=cfg.pipeline_config()).run(
+            rows).report
+        return sum(r.n_candidates for r in rep.rounds if r.k >= 2)
+
+    m_churn, m_steady = tracked(S[:window]), tracked(S[-window:])
+    rows = torch.from_numpy(pad_items(S[churn_rows - max(STREAM_DELTA_N):
+                                        churn_rows])).to(dev).view(torch.int8)
+    I = rows.shape[1]
+    W = I // 32
+    g = np.random.default_rng(11)
+    delta = []
+    for m in (m_churn, m_steady):
+        M = -(-m // 128) * 128                 # the data plane's bucket
+        C = np.zeros((M, I), np.int8)
+        for r in range(m):                     # 1-3 items; the rest padding
+            C[r, g.choice(n_items, 1 + r % 3, replace=False)] = 1
+        C = torch.from_numpy(C).to(dev)
+        sizes = C.sum(dim=1, dtype=torch.int32)
+        Cw = fused.pack_words(C)
+        for N in STREAM_DELTA_N:
+            T = rows[:N]
+            Tw = fused.pack_words(T)
+            for key, fn, plain, args, geom, ops, nbytes in (
+                    ("packed", fused.support_count_packed,
+                     fused.support_count_packed_plain, (Tw, Cw, sizes),
+                     fused.geometry(N, M, W, sms).describe(N, M, W),
+                     N * M * W * 32 / B1_OPS_PER_S,
+                     N * W * 4 + M * W * 4 + 2 * M * 4),
+                    ("int8", kernel.support_count_int8,
+                     kernel.support_count_int8_plain, (T, C, sizes),
+                     kernel.geometry(N, M, I, sms).describe(N, M, I),
+                     2 * N * M * I / INT8_OPS_PER_S,
+                     N * I + M * I + 2 * M * 4)):
+                got, want = fn(*args), plain(*args)
+                sync()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"support_count_{key} [{N}, {M}] differs from its "
+                        f"plain version in {int((got != want).sum())} counts")
+                bnd = {"operations": ops * 1e3, "bytes": nbytes / HBM_BW * 1e3}
+                by = max(bnd, key=bnd.get)
+                delta.append(dict(kernel=key, N=N, M=M, tracked=m,
+                                  ms=_cuda_ms(torch, lambda: fn(*args)),
+                                  bound_ms=bnd[by], bound_by=by,
+                                  geometry=geom))
+    for d in delta:
+        print(f"stream delta shape {d['kernel']} [{d['N']} x {d['M']} "
+              f"({d['tracked']} tracked)]: {d['ms']:.4f} ms "
+              f"({d['ms'] / floor_ms:.2f}x the launch floor), bound "
+              f"{d['bound_ms']:.6f} ms ({d['bound_by']}); launch: "
+              f"{d['geometry']}")
+    print(f"support-count kernels match their plain versions exactly at "
+          f"the delta shapes: N {list(STREAM_DELTA_N)} x tracked sets "
+          f"{m_churn} (churn, the first window) and {m_steady} "
+          "(stationary, the last window)")
+
+    # ---- the stream, three ways ----------------------------------------
+    def drive(label, **kw):
+        """One path: counts zeroed just before, read just after."""
+        engine = RecommendationEngine(
+            RuleIndex.build([], n_items),
+            config=ServingConfig(k=5, device=dev.type))
+        miner = StreamingMiner(n_items, config=StreamingConfig(**base, **kw),
+                               engine=engine)
+        sizes, same = [], []
+        zero_counts()
+        t0 = time.perf_counter()
+        for b in TransactionStream(S, batch):
+            miner.process_batch(b)
+            sizes.append(len(miner._tracked))
+            same.append(engine.index is miner.index)
+        miner.flush()
+        sync()
+        wall = time.perf_counter() - t0
+        on = read_counts()
+        report = miner.take_report()
+        phases = report.ledger.phases
+        deltas = [p for p in phases if p.name.startswith("stream-delta-")]
+        levels = [p for p in phases if p.name.startswith("stream-validate-k")]
+        revalidated = [b.idx for b in report.batches if b.revalidated]
+        print(f"stream {label}: backend {report.backend}, "
+              f"{report.n_batches} batches, {report.n_revalidations} "
+              f"re-validations (batches {revalidated}), "
+              f"{report.n_refreshes} refreshes, {len(miner.supports)} "
+              f"itemsets, {len(miner.rules)} rules, index "
+              f"v{miner.index.version}, wall {wall:.3f} s; launches {on}")
+        if len(deltas) != report.n_batches or any(
+                p.syncs != 1 for p in deltas + levels) or sum(
+                p.syncs for p in phases) != len(deltas) + len(levels):
+            raise AssertionError(
+                f"stream {label}: one d2h a delta phase and a validation "
+                f"level: {[(p.name, p.syncs) for p in phases if p.syncs]}")
+        if not any(i < n_churn for i in revalidated) or any(
+                b.revalidated for b in report.batches[-3:]):
+            raise AssertionError(f"stream {label}: re-validated at batches "
+                                 f"{revalidated}")
+        versions = [b.index_version for b in report.batches]
+        if not all(same) or versions != sorted(versions):
+            raise AssertionError(f"stream {label}: the engine lost the "
+                                 f"miner's index or versions went back")
+        if sizes[-1] != m_steady:
+            raise AssertionError(f"stream {label}: tracks {sizes[-1]} "
+                                 f"itemsets, the last window {m_steady}")
+        return dict(miner=miner, report=report, engine=engine, on=on,
+                    wall=wall, sizes=sizes)
+
+    runs = {"packed": drive("default (packed)"),
+            "mxu": drive("mxu", tuning={"variant": "mxu"}),
+            "ref": drive("ref", data_plane="ref")}
+    packed = runs["packed"]
+    miner, report = packed["miner"], packed["report"]
+    want = dict(_without_walls(report), backend="cuda")
+    for name, run in runs.items():
+        other = run["miner"]
+        if (other.supports != miner.supports or other.rules != miner.rules
+                or not other.index.same_arrays(miner.index)
+                or other.index.version != miner.index.version
+                or dict(_without_walls(run["report"]),
+                        backend="cuda") != want):
+            raise AssertionError(f"stream path {name} differs from packed")
+    on = {name: run["on"] for name, run in runs.items()}
+    if (on["packed"]["packed"] <= 0 or on["mxu"]["int8"] <= 0
+            or on["packed"]["int8"] or on["mxu"]["packed"]
+            or any(on["ref"].values())
+            or on["packed"]["packed"] != on["mxu"]["int8"]
+            or any(c[k] for c in on.values() for k in c
+                   if k not in ("packed", "int8"))):
+        raise AssertionError(f"a stream path launched another path's "
+                             f"kernel, or none: {on}")
+
+    # ---- the one-shot re-mine of the final window (and B10) -------------
+    final = miner.window.rows_raw()
+    remine = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        once = MarketBasketPipeline(config=cfg.pipeline_config()).run(final)
+        sync()
+        remine.append(time.perf_counter() - t0)
+        if once.supports != miner.supports or once.rules != miner.rules:
+            raise AssertionError("the stream differs from a one-shot mine "
+                                 "of its final window")
+    # batches whose window held stationary rows only, none re-validated
+    steady = [b for b in report.batches
+              if b.idx >= (churn_rows + window) // batch]
+    if not steady or any(b.revalidated for b in steady):
+        raise AssertionError("the steady tail re-validated")
+    host = {p.name: p.host_time_s for p in report.ledger.phases}
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    churn = report.batches[:n_churn]
+    # host time by phase, summed over the stream (names without their
+    # batch index and level); the rest of the wall is the window's pushes
+    # and stacking, the validation tiles' upload and the supports dicts
+    by_phase = {}
+    for p in report.ledger.phases:
+        key = re.sub(r"-k?\d+$", "", p.name)
+        by_phase[key] = by_phase.get(key, 0.0) + p.host_time_s
+    print(f"stream default (packed), host time by phase: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in by_phase.items()) + "; the rest "
+        f"{packed['wall'] - sum(by_phase.values()):.3f} s of the "
+        f"{packed['wall']:.3f} s wall")
+    out = dict(
+        tracked_churn=m_churn, tracked_steady=m_steady,
+        tracked_range_churn=[min(packed["sizes"][:n_churn]),
+                             max(packed["sizes"][:n_churn])],
+        batch_wall_churn_s=mean([b.wall_s for b in churn]),
+        batch_wall_steady_s=mean([b.wall_s for b in steady]),
+        delta_host_churn_s=mean([host[f"stream-delta-{b.idx}"]
+                                 for b in churn]),
+        delta_host_steady_s=mean([host[f"stream-delta-{b.idx}"]
+                                  for b in steady]),
+        remine_s=remine[-1],
+        refresh_latency_s=report.mean_refresh_latency_s,
+        walls_s={name: run["wall"] for name, run in runs.items()})
+    out["b10_remine_over_delta_batch"] = (out["remine_s"]
+                                          / out["batch_wall_steady_s"])
+    print(f"stream walls: a batch {out['batch_wall_churn_s']:.4f} s in the "
+          f"churn segment ({len(churn)} batches, delta phase "
+          f"{out['delta_host_churn_s']:.4f} s), "
+          f"{out['batch_wall_steady_s']:.4f} s in the steady tail "
+          f"({len(steady)} batches, delta phase "
+          f"{out['delta_host_steady_s']:.4f} s); mean refresh-to-visible "
+          f"{out['refresh_latency_s'] * 1e3:.2f} ms; tracked sets "
+          f"{out['tracked_range_churn']} in the churn segment, "
+          f"{m_steady} steady")
+    print(f"B10 (printed, not enforced): a one-shot re-mine of the "
+          f"{len(final)}-row window takes {out['remine_s']:.4f} s (first "
+          f"{remine[0]:.4f} s), the steady delta batch "
+          f"{out['batch_wall_steady_s']:.4f} s: "
+          f"{out['b10_remine_over_delta_batch']:.2f}x")
+
+    # ---- serving from the hot-swapped index -----------------------------
+    # baskets of the final window with one item taken out in turn: a
+    # whole pattern basket holds every item its rules would recommend
+    engine = packed["engine"]
+    queries = [Query.of(np.delete(ids, i % len(ids)).tolist())
+               for i, ids in enumerate(map(np.flatnonzero,
+                                           final[-N_ORACLE:]))]
+    zero_counts()
+    results, srep = engine.serve(queries)
+    on_serve = read_counts()
+    if on_serve["rm_packed"] <= 0 or any(
+            v for k, v in on_serve.items() if k != "rm_packed"):
+        raise AssertionError(f"serving the stream's index launched "
+                             f"{on_serve}")
+    for q, got in zip(queries, results):
+        if got != recommend_bruteforce(miner.rules, q.payload,
+                                       engine.config.k):
+            raise AssertionError(f"basket {q.payload}: {got} is not the "
+                                 "brute-force oracle's answer")
+    if not any(results):
+        raise AssertionError("no basket got a recommendation")
+    print(f"served {len(queries)} baskets of the final window (an item "
+          f"taken out of each) from index "
+          f"v{engine.index.version} ({srep.index_rows} rows): equal to "
+          f"recommend_bruteforce, {sum(map(bool, results))} non-empty; "
+          f"launches {on_serve}")
+    out["launches"] = {"packed": on["packed"]["packed"],
+                       "int8": on["mxu"]["int8"],
+                       "rm_packed": on_serve["rm_packed"]}
+    out["delta"] = delta
     return out
 
 
@@ -2029,7 +2335,13 @@ def main() -> int:
     launches["wkv"] = timing["wkv"].pop("launches")
     err["wkv"] = timing["wkv"].pop("max_abs_err")
 
-    # ---- 11. result lines ---------------------------------------------
+    # ---- 11. the streaming plane (the dense corpus, then a stationary tail)
+    stream = stream_phase(torch, np, dev, T_all, props.multi_processor_count,
+                          floor_ms, zero_counts, read_counts)
+    print(f"stream on {_nvidia_smi('name,power.limit')}: " + json.dumps(
+        {k: v for k, v in stream.items() if k not in ("launches", "delta")}))
+
+    # ---- 12. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -2063,6 +2375,11 @@ def main() -> int:
             rows[-1]["launch_floor_ms"] = floor_ms
         if key in son_launches:
             rows[-1]["son_launches"] = son_launches[key]
+        if key in stream["launches"]:
+            rows[-1]["stream_launches"] = stream["launches"][key]
+            rows[-1]["stream_delta"] = [
+                {k: v for k, v in d.items() if k != "kernel"}
+                for d in stream["delta"] if d["kernel"] == key]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,25 @@ with tempfile.TemporaryDirectory() as wd:
     index.save(wd + "/index")
     assert RuleIndex.load(wd + "/index").same_arrays(index)
     print("SON", mined.report.n_partitions, mined.report.checkpoint_saves)
+from repro_torch.data.baskets import stationary_baskets
+from repro_torch.launch.stream import stream
+from repro_torch.streaming import (StreamingConfig, StreamingMiner,
+                                   TransactionStream)
+S = stationary_baskets(768, 32, n_patterns=4, seed=5)
+cfg = StreamingConfig(window=256, batch_size=64, min_support=0.15,
+                      n_tiles=4, device="cpu")
+engine = RecommendationEngine(RuleIndex.build([], 32),
+                              config=ServingConfig(k=3, device="cpu"))
+streamer = StreamingMiner(32, config=cfg, engine=engine)
+srep = streamer.run(TransactionStream(S, 64), max_batches=6)
+once = MarketBasketPipeline(config=cfg.pipeline_config()).run(
+    streamer.window.rows_raw())
+assert streamer.supports == once.supports and streamer.rules == once.rules
+assert engine.index is streamer.index
+print("STREAM", srep.n_batches, srep.backend, streamer.index.version > 0)
+miner, _ = stream(n_tx=512, n_items=24, window=128, batch=64, batches=4,
+                  device="cpu")
+print("STREAM CLI", miner.window.n)
 import numpy as np
 import torch
 from repro_torch.configs.base import get_config
@@ -104,6 +123,8 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "HYBRID (2, 512)" in out.stdout
     assert "RWKV (2, 512)" in out.stdout
     assert "SON 3 6" in out.stdout
+    assert "STREAM 6 ref True" in out.stdout
+    assert "STREAM CLI 128" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -115,9 +136,11 @@ def test_no_source_imports_jax_or_reference():
     assert len(files) > 20
     for part in ("models", "configs", "launch", "kernels/flash_attention",
                  "kernels/selective_scan", "kernels/rwkv6_wkv", "checkpoint",
-                 "mining"):
+                 "mining", "streaming"):
         assert PORT / part / "__init__.py" in files
-    for module in ("checkpoint/store.py", "mining/son.py"):
+    for module in ("checkpoint/store.py", "mining/son.py",
+                   "streaming/source.py", "streaming/miner.py",
+                   "launch/common.py", "launch/stream.py"):
         assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  + _NO_MSGPACK.findall(f.read_text()) for f in files}

@@ -82,12 +82,15 @@ def _held(variant, T, C, sizes):
 # 3,128 transactions against 2,176, 256 and 128 candidates); chip_smoke's
 # ragged shapes; N not a multiple of the tile; M across the tile widths;
 # an item axis of one slab and of one and a half (for the packed kernel,
-# rows of 4 and 8 words); every item of every transaction set
+# rows of 4 and 8 words); every item of every transaction set; the
+# streaming delta phase's slabs (1 to 1,000 rows) against a tracked set
+# of the dense corpus (2,560) and of a stationary stream (256)
 CARD_CASES = [(3128, 2176, 1024, 0.05), (3128, 256, 1024, 0.05),
               (3128, 128, 1024, 0.05), (77, 200, 128, 0.5),
               (4133, 1, 256, 0.5), (1000, 257, 1024, 0.5),
               (65, 64, 64, 0.5), (129, 65, 192, 0.5), (3001, 129, 1024, 0.1),
-              (1, 3, 64, 1.0)]
+              (1, 3, 64, 1.0), (1, 2560, 1024, 0.05), (5, 256, 1024, 0.05),
+              (1000, 2560, 1024, 0.05)]
 
 
 @pytest.mark.cuda
