@@ -19,7 +19,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    kernel, ``torch._int_mm`` plus the compare-and-sum (a yardstick the
    port never calls), both kernels at each round's shape with the launch
    geometry each took, and the packed kernel's bound at the binary tensor
-   cores' rate (``B1_OPS_PER_S``) and at the CUDA cores' popcounts; then
+   cores' rate (``B1_OPS``) and at the CUDA cores' popcounts; then
    hold the intersect kernel (the Eclat plane's) exactly against its
    plain version on random words, bit 31 included, at the shapes the
    vertical plane gives it (a dense-corpus tile, a sparse-corpus k=1 tile,
@@ -35,7 +35,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    time, an estimate) beside the mine's wall;
 4. mine the same corpus through ``make_miner`` with ``algorithm="eclat"``
    on the intersect kernel and on the plain ``ref`` plane, and with
-   ``algorithm="auto"``, and require the apriori mine's supports and
+   ``algorithm="auto"`` (priced by the default, autotune-fed model), and
+   require the apriori mine's supports and
    rules, one read per counting round and intersect launches on the
    kernel paths only; then mine a sparse corpus at the scale of the FIMI
    ``retail`` dataset (88,162 baskets over 16,470 items) as a
@@ -151,8 +152,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     and steady batch walls, the refresh-to-visible latency, the tracked
     sets and B10's comparison of a steady delta batch with a one-shot
     re-mine of the window (printed, not enforced);
-12. print the card's name and power limit, the ``kernels`` JSON line and,
+12. the autotune plane: sweep the port's lattice of the three tunable
+    kernels (support count, intersect, rule match) on the card into a
+    temporary cache, every swept config held exactly against the plain
+    oracle, and print each bucket's winner and ``cost_us`` beside an empty
+    launch timed the same way (and the packed kernel alone, its operands
+    packed beforehand) and the checked-in cache's winner where it
+    differs; require the default dispatch (``tuning=None``) to serve the
+    checked-in winner at every lattice shape; print each kernel's
+    effective rates (``CostModelPolicy.from_autotune``) beside the data
+    sheet's; mine the dense corpus with ``policy="costmodel"``, autotuning
+    on and off (phase 3's supports and rules, one read a counting round,
+    ``cost_source`` on every phase; walls, launches and whether the plan
+    differs from the static one printed); serve phase 6's baskets under
+    ``costmodel`` (phase 6's recommendations); print ``select_algorithm``'s
+    choice and priced seconds on the dense, B11's and the retail-scale
+    corpus under the autotune-fed and the roofline-only model;
+13. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
+
+The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
+support-count and rule-match variant (``tuning={"variant": "packed"}``
+or ``"mxu"``): the default, ``tuning=None``, takes the variant the
+checked-in autotune cache picks for the card.
 
 It exits non-zero and prints no result where no CUDA device is available,
 or where the port's sources are not beside it.
@@ -171,19 +193,21 @@ import time
 from pathlib import Path
 from unittest import mock
 
-# H100 SXM peaks beyond those in repro_torch.launch.roofline: the dense
-# int8 tensor-core rate (NVIDIA data sheet) and the 32-bit popcount issue
-# rate per SM per clock (CUDA C++ programming guide, arithmetic
-# instruction throughput, compute 9.0).
-INT8_OPS_PER_S = 1979e12
+# The H100's rates are repro_torch.launch.roofline's: HBM, the dense int8
+# tensor-core rate (NVIDIA data sheet) and the binary tensor cores' bit
+# AND-popcount-adds (B1_OPS, measured by tools/rule_match_packed_designs.py
+# at 7,844-7,897e12 on an NVIDIA H100 80GB HBM3 at 700.00 W, whose s8 loop
+# read 98-100% of the int8 rate); the packed kernels' operations bound
+# counts at B1_OPS.  Beside them, the 32-bit popcount issue rate per SM
+# per clock (CUDA C++ programming guide, arithmetic instruction
+# throughput, compute 9.0).
 POPC_PER_SM_PER_CLOCK = 16
-# bit AND-popcount-adds a second on the binary tensor cores (wgmma
-# m64n256k256 .b1 .and.popc back to back on all 132 SMs), which the data
-# sheet does not give: the median of three runs of
-# tools/rule_match_packed_designs.py (7,844-7,897e12) on an NVIDIA H100
-# 80GB HBM3 at 700.00 W, whose s8 loop read 98-100% of the 1,979 TOP/s
-# above.  The packed kernels' operations bound counts at this rate.
-B1_OPS_PER_S = 7862e12
+# the support-count and rule-match variant the phases that count each
+# kernel's launches pin, whatever the autotune cache picks
+PACKED = {"variant": "packed"}
+# synced reps per config in phase 12's sweep (two sweeps of the lattice
+# at 31 reps picked the same winners on an NVIDIA H100 80GB HBM3)
+AUTOTUNE_REPS = 31
 # candidates a counting round of the dense mine pads to: k = 2, 3, then 4
 # and 5 (the mine line's m_padded)
 ROUND_M = (2176, 256, 128)
@@ -337,6 +361,7 @@ def son_phase(torch, dev, T_all, packed, index, queries, s_packed,
     def son_mine(workdir, label, son_kw=None, **kw):
         """One SON path: counts zeroed just before, read just after; the
         wall ends in a synchronise."""
+        kw.setdefault("tuning", PACKED)
         cfg = PipelineConfig(min_support=MIN_SUPPORT, n_tiles=N_TILES,
                              device=dev.type, **kw)
         son = SONConfig(workdir=workdir, partition_rows=SON_PARTITION_ROWS,
@@ -480,7 +505,7 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
     launches and the delta-shape times."""
     from repro_torch.data.baskets import pad_items, stationary_baskets
     from repro_torch.kernels.support_count import fused, kernel
-    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.launch.roofline import B1_OPS, HBM_BW, INT8_OPS
     from repro_torch.pipeline import MarketBasketPipeline
     from repro_torch.serving import (Query, RecommendationEngine, RuleIndex,
                                      ServingConfig, recommend_bruteforce)
@@ -529,12 +554,12 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
                     ("packed", fused.support_count_packed,
                      fused.support_count_packed_plain, (Tw, Cw, sizes),
                      fused.geometry(N, M, W, sms).describe(N, M, W),
-                     N * M * W * 32 / B1_OPS_PER_S,
+                     N * M * W * 32 / B1_OPS,
                      N * W * 4 + M * W * 4 + 2 * M * 4),
                     ("int8", kernel.support_count_int8,
                      kernel.support_count_int8_plain, (T, C, sizes),
                      kernel.geometry(N, M, I, sms).describe(N, M, I),
-                     2 * N * M * I / INT8_OPS_PER_S,
+                     2 * N * M * I / INT8_OPS,
                      N * I + M * I + 2 * M * 4)):
                 got, want = fn(*args), plain(*args)
                 sync()
@@ -564,7 +589,8 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
         """One path: counts zeroed just before, read just after."""
         engine = RecommendationEngine(
             RuleIndex.build([], n_items),
-            config=ServingConfig(k=5, device=dev.type))
+            config=ServingConfig(k=5, tuning=PACKED, device=dev.type))
+        kw.setdefault("tuning", PACKED)
         miner = StreamingMiner(n_items, config=StreamingConfig(**base, **kw),
                                engine=engine)
         sizes, same = [], []
@@ -609,7 +635,7 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
         return dict(miner=miner, report=report, engine=engine, on=on,
                     wall=wall, sizes=sizes)
 
-    runs = {"packed": drive("default (packed)"),
+    runs = {"packed": drive("packed"),
             "mxu": drive("mxu", tuning={"variant": "mxu"}),
             "ref": drive("ref", data_plane="ref")}
     packed = runs["packed"]
@@ -662,7 +688,7 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
     for p in report.ledger.phases:
         key = re.sub(r"-k?\d+$", "", p.name)
         by_phase[key] = by_phase.get(key, 0.0) + p.host_time_s
-    print(f"stream default (packed), host time by phase: " + ", ".join(
+    print(f"stream packed, host time by phase: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in by_phase.items()) + "; the rest "
         f"{packed['wall'] - sum(by_phase.values()):.3f} s of the "
         f"{packed['wall']:.3f} s wall")
@@ -727,6 +753,212 @@ def stream_phase(torch, np, dev, T_all, sms, floor_ms, zero_counts,
                        "rm_packed": on_serve["rm_packed"]}
     out["delta"] = delta
     return out
+
+
+def autotune_phase(torch, np, dev, T_all, packed, index, queries,
+                   s_packed) -> dict:
+    """Phase 12: the autotune plane and the cost-model policy on the card.
+
+    Sweeps the port's whole lattice for the three tunable kernels into a
+    temporary cache (never the checked-in one), requiring every swept
+    config to equal the plain oracle exactly, and prints each bucket's
+    winner and ``cost_us`` beside the launch floor measured the same way
+    (and, for a packed config, its kernel alone on operands packed
+    beforehand), naming the checked-in cache's winner where it differs;
+    requires ``resolve_config(..., None, dev)`` to serve the checked-in
+    cache's winner at every lattice shape; prints each kernel's effective
+    rates from ``CostModelPolicy.from_autotune`` on the fresh cache beside
+    the data sheet's; mines the dense corpus with ``policy="costmodel"``
+    with autotuning on and off (phase 3's answer, one d2h a counting
+    round, ``cost_source`` on every phase; the wall, the launches and
+    whether the plan differs from phase 3's static one printed); serves
+    ``queries`` under ``costmodel`` (phase 6's answers); and prints
+    ``select_algorithm``'s choice and priced seconds on the dense, B11's
+    and the retail-scale corpus under ``AlgorithmCostModel.from_autotune``
+    and the roofline-only model."""
+    import tempfile
+
+    from repro_torch.data.baskets import (BasketConfig, generate_baskets,
+                                          sparse_baskets)
+    from repro_torch.data.sparse import SparseSlab, density_stats
+    from repro_torch.kernels.autotune.cache import (DEFAULT_CACHE_PATH,
+                                                    AutotuneCache,
+                                                    device_kind,
+                                                    resolve_config)
+    from repro_torch.kernels.autotune.tuner import (make_inputs, measure_us,
+                                                    standard_shapes)
+    from repro_torch.kernels.rule_match import fused as rm_fused
+    from repro_torch.kernels.support_count import fused
+    from repro_torch.kernels.support_count.kernel import support_count_int8
+    from repro_torch.launch.autotune import autotune
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.tuning import TUNABLE_KERNELS, default_config
+    from repro_torch.mining import AlgorithmCostModel, select_algorithm
+    from repro_torch.pipeline import MarketBasketPipeline, PipelineConfig
+    from repro_torch.runtime import CostModelPolicy
+    from repro_torch.serving import RecommendationEngine, ServingConfig
+
+    kind = device_kind(dev)
+    checked_in = AutotuneCache.load(DEFAULT_CACHE_PATH)
+    if checked_in.load_error:
+        raise AssertionError(f"the checked-in cache: {checked_in.load_error}")
+    on_card = checked_in.has_kernel("support_count", dev)
+    print(f"autotune: device kind {kind}; the checked-in cache holds "
+          f"{len(checked_in)} entries, "
+          f"{'some' if on_card else 'none'} for this kind")
+
+    # ---- 1-2. the sweep, into a scratch cache ---------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        fresh = autotune(out=f"{wd}/cache.json", reps=AUTOTUNE_REPS,
+                         device=dev.type, log=lambda line: None)
+    sweep_s = time.perf_counter() - t0
+    empty = torch.empty(0, device=dev)
+    floor_us = measure_us(lambda: (torch.cuda._sleep(0), empty)[1],
+                          reps=AUTOTUNE_REPS)
+    print(f"autotune sweep: {len(fresh)} buckets in {sweep_s:.1f} s "
+          f"({AUTOTUNE_REPS} reps a config, CUDA events); an empty launch "
+          f"measured the same way: {floor_us:.2f} us")
+    sweep = {}
+    for kernel in TUNABLE_KERNELS:
+        for shape in standard_shapes(kernel):
+            ent = fresh.lookup(kernel, shape, dev)
+            if ent is None or ent["shape"] != list(shape):
+                raise AssertionError(f"the sweep has no entry for {kernel} "
+                                     f"{shape}")
+            if not all(s["matched"] for s in ent["swept"]):
+                raise AssertionError(f"{kernel} {shape}: a config differs "
+                                     f"from the oracle: {ent['swept']}")
+            costs = {s["config"]["variant"]: s["cost_us"]
+                     for s in ent["swept"]}
+            line = (f"autotune {kernel} {list(shape)}: winner "
+                    f"{ent['config']['variant']} {ent['cost_us']:.2f} us "
+                    f"({ent['cost_us'] / floor_us:.1f}x the floor); swept "
+                    + ", ".join(f"{v} {c:.2f} us" for v, c in costs.items()))
+            alone = None
+            if kernel != "intersect_count":
+                x = make_inputs(kernel, shape, device=dev)
+                if kernel == "support_count":
+                    args = (fused.pack_words(x["T"]), fused.pack_words(x["C"]),
+                            x["sizes"][0].to(torch.int32))
+                    alone = measure_us(lambda: fused.support_count_packed(
+                        *args), reps=AUTOTUNE_REPS)
+                else:
+                    args = (fused.pack_words(x["Q"]), fused.pack_words(x["A"]),
+                            x["sizes"][0].to(torch.int32), x["conf"][0])
+                    alone = measure_us(lambda: rm_fused.rule_scores_packed(
+                        *args), reps=AUTOTUNE_REPS)
+                line += (f"; the packed kernel alone on packed operands "
+                         f"{alone:.2f} us")
+                del x, args
+            ci = checked_in.lookup(kernel, shape, dev)
+            if ci is not None and ci["config"] != ent["config"]:
+                line += f"; the checked-in cache's winner {ci['config']}"
+            print(line)
+            sweep[f"{kernel} {list(shape)}"] = dict(
+                winner=ent["config"]["variant"], cost_us=ent["cost_us"],
+                swept_us=costs, packed_kernel_alone_us=alone)
+
+    # ---- 3. the default dispatch serves the checked-in winners -----------
+    for kernel in TUNABLE_KERNELS:
+        for shape in standard_shapes(kernel):
+            ci = checked_in.lookup(kernel, shape, dev)
+            want = ci["config"] if ci else default_config(kernel, shape)
+            got = resolve_config(kernel, shape, None, dev)
+            if got != want:
+                raise AssertionError(f"{kernel} {shape}: the default "
+                                     f"dispatch picks {got}, not {want}")
+    print("the default dispatch (tuning=None) serves the checked-in "
+          "cache's winner at every lattice shape")
+
+    # ---- 4. the effective rates the cost model is fed -------------------
+    rates = {}
+    for kernel in TUNABLE_KERNELS:
+        pol = CostModelPolicy.from_autotune(fresh, kernel, device=dev)
+        rates[kernel] = dict(peak_flops=pol.peak_flops, hbm_bw=pol.hbm_bw,
+                             flops_per_byte=pol.flops_per_byte)
+        print(f"autotune rates {kernel}: {pol.peak_flops:.4g} flop/s "
+              f"({pol.peak_flops / PEAK_FLOPS:.2%} of the data sheet's "
+              f"{PEAK_FLOPS:.4g}), {pol.hbm_bw:.4g} B/s "
+              f"({pol.hbm_bw / HBM_BW:.2%} of {HBM_BW:.4g}), intensity "
+              f"{pol.flops_per_byte:.1f} flop/B (the data sheet's ridge "
+              f"{PEAK_FLOPS / HBM_BW:.1f})")
+
+    # ---- 5. the dense mine under costmodel, autotune on and off ----------
+    def plans(res):
+        return [p.tiles_done for p in res.report.ledger.by_kind("map")]
+
+    mines = {}
+    for autotune_on in (True, False):
+        label = f"costmodel, autotune {'on' if autotune_on else 'off'}"
+        cfg = PipelineConfig(min_support=MIN_SUPPORT, n_tiles=N_TILES,
+                             policy="costmodel", autotune=autotune_on,
+                             device=dev.type)
+        counts = (fused.support_count_packed, support_count_int8)
+        before = [f.launches for f in counts]
+        t0 = time.perf_counter()
+        res = MarketBasketPipeline(config=cfg).run(T_all)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [f.launches - b for f, b in zip(counts, before)]
+        led = res.report.ledger
+        want = "autotune" if autotune_on and on_card else "roofline"
+        sources = {p.cost_source for p in led.phases}
+        maps = led.by_kind("map")
+        if res.supports != packed.supports or res.rules != packed.rules:
+            raise AssertionError(f"mine {label} differs from phase 3's")
+        if not maps or any(p.syncs != 1 for p in maps):
+            raise AssertionError(f"mine {label}: one read a counting round: "
+                                 f"{[(p.name, p.syncs) for p in maps]}")
+        if sources != {want} or res.report.policy != "costmodel":
+            raise AssertionError(f"mine {label}: cost sources {sources}, "
+                                 f"not {want}")
+        differs = plans(res) != plans(packed)
+        print(f"mine {label}: wall {wall:.3f} s, cost_source {want} on all "
+              f"{len(led.phases)} phases, launches packed {launches[0]} / "
+              f"int8 {launches[1]}; the plan "
+              f"{'differs from' if differs else 'equals'} phase 3's static "
+              "plan")
+        mines[label] = dict(wall_s=wall, plan_differs=differs,
+                            launches_packed=launches[0],
+                            launches_int8=launches[1])
+
+    # ---- 6. the serve under costmodel -----------------------------------
+    t0 = time.perf_counter()
+    results, report = RecommendationEngine(index, config=ServingConfig(
+        policy="costmodel", device=dev.type)).serve(queries)
+    serve_s = time.perf_counter() - t0
+    if results != s_packed:
+        raise AssertionError("the costmodel serve differs from phase 6's")
+    rule_source = {p.cost_source for p in report.ledger.phases}
+    print(f"serve costmodel: {report.n_queries} queries, phase 6's "
+          f"recommendations, cost_source {sorted(rule_source)}, wall "
+          f"{serve_s:.4f} s")
+
+    # ---- 7. the router under both models --------------------------------
+    corpora = {"dense": (T_all, MIN_SUPPORT),
+               "b11": (generate_baskets(BasketConfig(**B11_CORPUS)),
+                       B11_MIN_SUPPORT),
+               "retail": (SparseSlab.from_baskets(
+                   sparse_baskets(**SPARSE_CORPUS),
+                   n_items=SPARSE_CORPUS["n_items"]), SPARSE_MIN_SUPPORT)}
+    models = {"autotune": AlgorithmCostModel.from_autotune(device=dev),
+              "roofline": AlgorithmCostModel()}
+    router = {}
+    for name, (baskets, min_support) in corpora.items():
+        stats = density_stats(baskets)
+        min_sup = PipelineConfig(min_support=min_support,
+                                 device=dev.type).abs_support(stats.n_tx)
+        for model_name, model in models.items():
+            choice = select_algorithm(baskets, min_sup, model=model,
+                                      stats=stats)
+            router[f"{name} {model_name}"] = dict(
+                algorithm=choice.algorithm, est_cost_s=choice.est_cost_s)
+            print(f"router {name} under the {model_name} model: "
+                  f"{choice.summary()}")
+    return dict(sweep=sweep, floor_us=floor_us, rates=rates, mines=mines,
+                serve_wall_s=serve_s, router=router)
 
 
 def _live_pairs(S: int, window: int) -> int:
@@ -1528,7 +1760,7 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_wkv import kernel as wkv
     from repro_torch.kernels.selective_scan import kernel as scan
     from repro_torch.kernels.support_count import fused, intersect, kernel
-    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.launch.roofline import B1_OPS, HBM_BW, INT8_OPS
     from repro_torch.mining import EclatMiner, make_miner
     from repro_torch.pipeline import (MarketBasketPipeline, PipelineConfig,
                                       ingest_baskets, uniform_tiles)
@@ -1671,10 +1903,10 @@ def main() -> int:
     # the packed kernel's AND-popcounts at the binary tensor cores' rate;
     # the CUDA cores' popcount rate, its bound before, is printed beside
     bound = {
-        "packed": {"operations": N * M * W * 32 / B1_OPS_PER_S * 1e3,
+        "packed": {"operations": N * M * W * 32 / B1_OPS * 1e3,
                    "bytes": (N * W * 4 + M * W * 4 + 2 * M * 4)
                    / HBM_BW * 1e3},
-        "int8": {"operations": 2 * N * M * I / INT8_OPS_PER_S * 1e3,
+        "int8": {"operations": 2 * N * M * I / INT8_OPS * 1e3,
                  "bytes": (N * I + M * I + 2 * M * 4)
                  / HBM_BW * 1e3},
     }
@@ -1692,7 +1924,7 @@ def main() -> int:
     # the packed kernel at each round's shape, beside its bound
     timing["packed"]["rounds"] = {}
     for m in ROUND_M:
-        bnd = {"operations": N * m * W * 32 / B1_OPS_PER_S * 1e3,
+        bnd = {"operations": N * m * W * 32 / B1_OPS * 1e3,
                "bytes": (N * W * 4 + m * W * 4 + 2 * m * 4) / HBM_BW * 1e3}
         by = max(bnd, key=bnd.get)
         geom = fused.geometry(N, m, W, props.multi_processor_count)
@@ -1709,7 +1941,7 @@ def main() -> int:
     # the int8 kernel at each round's shape, beside _int_mm and its bound
     timing["int8"]["rounds"] = {}
     for m in ROUND_M:
-        bnd = {"operations": 2 * N * m * I / INT8_OPS_PER_S * 1e3,
+        bnd = {"operations": 2 * N * m * I / INT8_OPS * 1e3,
                "bytes": (N * I + m * I + 2 * m * 4) / HBM_BW * 1e3}
         by = max(bnd, key=bnd.get)
         geom = kernel.geometry(N, m, I, props.multi_processor_count)
@@ -1790,13 +2022,13 @@ def main() -> int:
         res = MarketBasketPipeline(config=cfg).run(T_all)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        walls["apriori " + ("mxu" if "tuning" in kw
+        walls["apriori " + ("mxu" if kw.get("tuning") == {"variant": "mxu"}
                             else kw.get("data_plane", "packed"))] = wall
         rounds = [(r.k, r.n_candidates, r.n_frequent, r.m_padded)
                   for r in res.report.rounds]
         serial_s = sum(p.host_time_s for p in res.report.ledger.phases
                        if p.kind == "serial")
-        print(f"mine {kw or 'default (packed)'}: backend "
+        print(f"mine {kw}: backend "
               f"{res.report.backend}, {len(rounds)} rounds "
               f"(k, candidates, frequent, m_padded) {rounds}, "
               f"{len(res.supports)} itemsets, {len(res.rules)} rules, "
@@ -1814,7 +2046,7 @@ def main() -> int:
                                           pattern_len=3, pattern_prob=0.5,
                                           seed=5))
     got = MarketBasketPipeline(config=PipelineConfig(
-        min_support=0.05, n_tiles=4)).run(small).supports
+        min_support=0.05, n_tiles=4, tuning=PACKED)).run(small).supports
     if got != apriori_bruteforce(small, 15, max_k=24):
         raise AssertionError("small mine differs from apriori_bruteforce")
     print("small corpus mined on the card = apriori_bruteforce")
@@ -1826,7 +2058,7 @@ def main() -> int:
         res = mine(**kw)
         return res, read_counts()
 
-    packed, on_packed = drive()
+    packed, on_packed = drive(tuning=PACKED)
     mxu, on_mxu = drive(tuning={"variant": "mxu"})
     ref, on_ref = drive(data_plane="ref")
     print(f"launches: packed path {on_packed}, mxu path {on_mxu}, "
@@ -1896,8 +2128,10 @@ def main() -> int:
 
     def mine_eclat(baskets, min_support, label, n_tiles=N_TILES, **kw):
         """One path through make_miner: counts zeroed just before, read
-        just after; the wall includes auto's density measurement."""
-        cfg = PipelineConfig(min_support=min_support, n_tiles=n_tiles, **kw)
+        just after; the wall includes auto's density measurement.  The
+        Apriori mines run the packed kernel."""
+        cfg = PipelineConfig(min_support=min_support, n_tiles=n_tiles,
+                             tuning=PACKED, **kw)
         zero_counts()
         gc_pause["s"] = 0.0
         t0 = time.perf_counter()
@@ -1975,7 +2209,7 @@ def main() -> int:
         for algorithm in order:
             miners[algorithm], _ = make_miner(baskets, config=PipelineConfig(
                 min_support=min_support, n_tiles=n_tiles,
-                algorithm=algorithm))
+                algorithm=algorithm, tuning=PACKED))
             miners[algorithm].run(baskets)                 # warm-up
         torch.cuda.synchronize()
         runs = {a: [] for a in order}
@@ -2042,7 +2276,8 @@ def main() -> int:
         T_all, MIN_SUPPORT, "eclat ref", algorithm="eclat", data_plane="ref")
     auto, on_auto, choice = mine_eclat(T_all, MIN_SUPPORT, "auto",
                                        algorithm="auto")
-    print(choice.summary())
+    print(f"the router's default model, AlgorithmCostModel.from_autotune "
+          f"on the card: {choice.summary()}")
     for name, res in (("eclat cuda", eclat), ("eclat ref", eclat_ref),
                       ("auto", auto)):
         if res.supports != packed.supports or res.rules != packed.rules:
@@ -2196,11 +2431,11 @@ def main() -> int:
               "torch._int_mm yardstick")
         W_ = Ip // 32
         bound = {
-            "rm_packed": {"operations": B_ * R_ * W_ * 32 / B1_OPS_PER_S
+            "rm_packed": {"operations": B_ * R_ * W_ * 32 / B1_OPS
                           * 1e3,
                           "bytes": (B_ * W_ * 4 + R_ * W_ * 4 + 2 * R_ * 4
                                     + B_ * R_ * 4) / HBM_BW * 1e3},
-            "rm_int8": {"operations": 2 * B_ * R_ * Ip / INT8_OPS_PER_S
+            "rm_int8": {"operations": 2 * B_ * R_ * Ip / INT8_OPS
                         * 1e3,
                         "bytes": (B_ * Ip + R_ * Ip + 2 * R_ * 4
                                   + B_ * R_ * 4) / HBM_BW * 1e3},
@@ -2258,7 +2493,7 @@ def main() -> int:
         results, report = engine.serve(queries)
         on = read_counts()
         score_s = sum(p.host_time_s for p in report.ledger.by_kind("map"))
-        print(f"serve {kw or 'default (packed)'}: backend {report.backend}, "
+        print(f"serve {kw}: backend {report.backend}, "
               f"{report.n_queries} queries in {report.n_batches} batches, "
               f"cache {report.cache_hits} hit / {report.cache_misses} miss, "
               f"batches by bucket {report.bucket_counts}, "
@@ -2267,7 +2502,8 @@ def main() -> int:
               f"{gc_pause['s']:.4f} s; launches {on}")
         return results, report, on
 
-    paths = {"packed": {}, "mxu": {"tuning": {"variant": "mxu"}},
+    paths = {"packed": {"tuning": PACKED},
+             "mxu": {"tuning": {"variant": "mxu"}},
              "ref": {"data_plane": "ref"}}
     runs = {name: [] for name in paths}
     for name in ("packed", "mxu", "ref", "ref", "mxu", "packed"):
@@ -2341,7 +2577,13 @@ def main() -> int:
     print(f"stream on {_nvidia_smi('name,power.limit')}: " + json.dumps(
         {k: v for k, v in stream.items() if k not in ("launches", "delta")}))
 
-    # ---- 12. result lines ---------------------------------------------
+    # ---- 12. the autotune plane and the cost-model policy -------------
+    tuned = autotune_phase(torch, np, dev, T_all, packed, index, queries,
+                           s_packed)
+    print(f"autotune on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps(tuned))
+
+    # ---- 13. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (

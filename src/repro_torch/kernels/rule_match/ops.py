@@ -5,9 +5,11 @@ recommendation (padding, backend and variant dispatch — the same idiom as
 Two kernels compute bit-identical [B, R] score matrices:
 
 * ``packed`` — the packed-popcount kernel (:mod:`.fused`): subset test +
-  confidence weighting in one launch over 32-item words.  The default, as
-  the reference's checked-in autotune cache picks it on every bucket.
+  confidence weighting in one launch over 32-item words.
 * ``mxu``    — the int8 tensor-core kernel (:mod:`.kernel`).
+
+Which one runs comes from the autotune cache, as for support counting
+(``packed`` on a device without entries).
 
 On a CUDA tensor each runs its hand-written kernel; on a CPU tensor its
 plain PyTorch version.  Either way the scores fold through the shared
@@ -15,7 +17,7 @@ plain PyTorch version.  Either way the scores fold through the shared
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -24,6 +26,7 @@ from repro_torch.kernels.rule_match.kernel import rule_scores_int8
 from repro_torch.kernels.rule_match.ref import (rule_scores_ref,
                                                 topk_from_scores)
 from repro_torch.kernels.support_count.ops import (_as_int8, _pad_to,
+                                                   check_tuning,
                                                    resolve_variant)
 
 BACKENDS = ("cuda", "ref")
@@ -41,7 +44,7 @@ def _pad_rows(x: torch.Tensor, n: int, value: float = 0) -> torch.Tensor:
 def rule_topk(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
               conf: torch.Tensor, cons: torch.Tensor, *, k: int,
               n_items: int, backend: Optional[str] = None,
-              tuning: Optional[dict] = None):
+              tuning: Any = None):
     """Top-k item recommendations for a batch of query baskets.
 
     Q: [B, I] 0/1 baskets; A: [R, I] 0/1 antecedent masks; sizes: [R]
@@ -56,15 +59,16 @@ def rule_topk(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
 
     ``backend``: ``"cuda"`` scores through the kernel wrappers, ``"ref"``
     through the plain oracle; ``None`` = ``cuda`` on a CUDA tensor, else
-    ``ref``.  ``tuning``: ``None`` = the ``packed`` kernel;
-    ``{"variant": "mxu"}`` pins the int8 one.
+    ``ref``.  ``tuning``: ``None`` = the checked-in autotune cache;
+    ``False`` = the roofline-seeded default (``packed``); a dict
+    ``{"variant": ...}`` or an ``AutotuneCache`` pins the choice.
     """
     if backend is None:
         backend = "cuda" if Q.device.type == "cuda" else "ref"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} "
                          f"(expected one of {BACKENDS})")
-    variant = resolve_variant(tuning)
+    check_tuning(tuning, "rule_match")
     B0, I0 = Q.shape
     R0 = A.shape[0]
     if not 0 < k <= I0:
@@ -83,7 +87,8 @@ def rule_topk(Q: torch.Tensor, A: torch.Tensor, sizes: torch.Tensor,
     cons = _pad_rows(cons.to(torch.int32), Rp, Ip)
     if backend == "ref":
         scores = rule_scores_ref(Q, A, sizes, conf)
-    elif variant == "packed":
+    elif resolve_variant("rule_match", (Q.shape[0], Rp, Ip), tuning,
+                         Q.device) == "packed":
         scores = rule_scores_fused(Q, A, sizes, conf)
     else:
         scores = rule_scores_int8(Q, A, sizes, conf)

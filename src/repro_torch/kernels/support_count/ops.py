@@ -4,35 +4,54 @@ dispatch, and the Eclat plane's ``intersect_count``.
 Two kernels compute the same counts bit-identically:
 
 * ``packed`` — the packed-popcount kernel (:mod:`.fused`): items packed
-  32 to a word, containment + filter + count in one launch.  The default,
-  as the reference's checked-in autotune cache picks it on every bucket.
+  32 to a word, containment + filter + count in one launch.
 * ``mxu``    — the int8 tensor-core kernel (:mod:`.kernel`).
 
-On a CUDA tensor each runs its hand-written kernel; on a CPU tensor its
+Which one runs comes from the autotune cache
+(:mod:`repro_torch.kernels.autotune`) keyed by (kernel, shape bucket,
+device kind), swept on the card; with no entry for the device the
+roofline-seeded default applies, which is ``packed`` at every shape.  On
+a CUDA tensor each runs its hand-written kernel; on a CPU tensor its
 plain PyTorch version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Tuple
 
 import torch
 
+from repro_torch.kernels.autotune.cache import AutotuneCache, resolve_config
 from repro_torch.kernels.support_count.fused import (pack_words,
                                                      support_count_packed)
 from repro_torch.kernels.support_count.intersect import intersect_count_words
 from repro_torch.kernels.support_count.kernel import support_count_int8
+from repro_torch.launch.tuning import VARIANTS
 
-VARIANTS = ("packed", "mxu")
+
+def check_tuning(tuning: Any, kernel: str = "support_count") -> None:
+    """Reject a malformed ``tuning`` before any launch: it must be
+    ``None`` (the default cache), ``False`` (the roofline-seeded default),
+    an :class:`AutotuneCache`, or a dict pinning a variant of ``kernel``."""
+    if tuning is None or tuning is False or isinstance(tuning,
+                                                       AutotuneCache):
+        return
+    if not isinstance(tuning, dict) or \
+            tuning.get("variant") not in VARIANTS[kernel]:
+        raise ValueError(f"tuning must be None, False, an AutotuneCache or "
+                         f"a dict naming a variant in {VARIANTS[kernel]}, "
+                         f"got {tuning!r}")
 
 
-def resolve_variant(tuning: Optional[dict]) -> str:
-    """``None`` = ``packed``; a dict ``{"variant": ...}`` pins the choice."""
-    if tuning is None:
-        return "packed"
-    if not isinstance(tuning, dict) or tuning.get("variant") not in VARIANTS:
-        raise ValueError(f"tuning must be None or a dict naming a variant "
-                         f"in {VARIANTS}, got {tuning!r}")
-    return tuning["variant"]
+def resolve_variant(kernel: str, shape: Tuple[int, ...], tuning: Any,
+                    device: torch.device) -> str:
+    """The variant ``kernel`` runs at the padded ``shape`` on ``device``:
+    ``tuning`` (already through :func:`check_tuning`) resolved by
+    :func:`repro_torch.kernels.autotune.cache.resolve_config`."""
+    cfg = resolve_config(kernel, shape, tuning, device)
+    if cfg.get("variant") not in VARIANTS[kernel]:
+        raise ValueError(f"{kernel} config {cfg!r} for {shape} names no "
+                         f"variant in {VARIANTS[kernel]}")
+    return cfg["variant"]
 
 
 def _pad_to(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
@@ -50,7 +69,7 @@ def _as_int8(x: torch.Tensor) -> torch.Tensor:
 
 
 def support_count(T: torch.Tensor, C: torch.Tensor, *,
-                  tuning: Optional[dict] = None) -> torch.Tensor:
+                  tuning: Any = None) -> torch.Tensor:
     """Support counts [M] int32 of candidate masks C [M, I] over
     transactions T [N, I] (0/1, same device).
 
@@ -58,13 +77,20 @@ def support_count(T: torch.Tensor, C: torch.Tensor, *,
     have |c| = 0 and would match every transaction, so the counts are
     sliced back to M rather than trusted.  Padded transaction rows are
     all-zero and match only |c| = 0 sets, which real candidates never are.
+
+    ``tuning``: ``None`` = the checked-in autotune cache; ``False`` = the
+    roofline-seeded default; a dict ``{"variant": ...}`` or an
+    ``AutotuneCache`` pins the choice.
     """
-    variant = resolve_variant(tuning)
+    check_tuning(tuning)
     M0 = C.shape[0]
     if M0 == 0:          # empty candidate level: nothing to count
         return torch.zeros(0, dtype=torch.int32, device=T.device)
     T = _pad_to(_pad_to(_as_int8(T), 1, 128), 0, 8).contiguous()
     C = _pad_to(_pad_to(_as_int8(C), 1, 128), 0, 128).contiguous()
+    variant = resolve_variant("support_count",
+                              (T.shape[0], C.shape[0], T.shape[1]), tuning,
+                              T.device)
     sizes = C.sum(dim=1, dtype=torch.int32)
     if variant == "packed":
         out = support_count_packed(pack_words(T), pack_words(C), sizes)
@@ -73,14 +99,20 @@ def support_count(T: torch.Tensor, C: torch.Tensor, *,
     return out[:M0]
 
 
-def intersect_count(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def intersect_count(A: torch.Tensor, B: torch.Tensor, *,
+                    tuning: Any = None) -> torch.Tensor:
     """Row-aligned tid-slab intersection counts [M] int32 (Eclat primitive).
 
     A, B: [M, W] packed tid-list words (int32 bit patterns, same device):
     row m of the output is |tidset(A[m]) ∩ tidset(B[m])|.  Pads M→128·,
     W→128· with zero words (inert: popcount(0) == 0) and slices padded
     rows away.
+
+    ``tuning`` follows the family contract (see :func:`support_count`);
+    the kernel has one variant, ``packed``, so a valid ``tuning`` leaves
+    nothing to resolve.
     """
+    check_tuning(tuning, "intersect_count")
     if A.shape != B.shape:
         raise ValueError(f"slab shapes differ: {tuple(A.shape)} vs "
                          f"{tuple(B.shape)}")

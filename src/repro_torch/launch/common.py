@@ -1,10 +1,10 @@
 """Shared CLI surface for the launch entry points.
 
 The entry points drive the same substrate (corpus generation, the
-heterogeneity profile, the switching policy, the kernel data plane, the
-device), so the flags that select it are declared once here and attached
-by each entry point: a flag added here shows up everywhere with the same
-name, default and help text.
+heterogeneity profile, the switching policy, the kernel data plane and
+its autotune winner cache, the device), so the flags that select it are
+declared once here and attached by each entry point: a flag added here
+shows up everywhere with the same name, default and help text.
 
 Each ``add_*`` helper attaches one coherent flag group to an existing
 parser; ``standard_parser()`` builds a parser with all of them for the
@@ -45,7 +45,8 @@ def add_runtime_args(ap: argparse.ArgumentParser,
     ap.add_argument("--profile", default="paper", choices=sorted(PROFILES))
     ap.add_argument("--policy", default=policy, choices=list(POLICY_NAMES),
                     help="switching policy: plan once (static), closed-loop "
-                         "EWMA + speculation (dynamic)")
+                         "EWMA + speculation (dynamic), roofline-seeded "
+                         "costs (costmodel)")
     ap.add_argument("--split", default=split,
                     choices=["lpt", "proportional", "equal"],
                     help="tile split strategy across the core profile")
@@ -53,12 +54,19 @@ def add_runtime_args(ap: argparse.ArgumentParser,
 
 
 def add_dataplane_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """Kernel backend and the device counting and scoring run on."""
+    """Kernel backend, autotune winner cache, and the device counting and
+    scoring run on."""
     ap.add_argument("--data-plane", default="auto",
                     choices=["auto", "cuda", "ref"],
                     help="the CUDA kernels (cuda), their plain PyTorch "
                          "versions (ref), or whichever the device runs "
                          "(auto)")
+    ap.add_argument("--autotune", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="use the checked-in kernel winner cache for "
+                         "variant selection and, under --policy costmodel, "
+                         "its measured rates (--no-autotune = "
+                         "roofline-seeded defaults)")
     ap.add_argument("--device", default="cuda",
                     help="where counting and scoring run (default: cuda)")
     return ap

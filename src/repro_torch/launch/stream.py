@@ -5,7 +5,7 @@ running as one closed loop.
 
   PYTHONPATH=src python -m repro_torch.launch.stream --n-tx 8192 \
       --window 2048 --batch 128 --min-support 0.02 --policy dynamic \
-      [--device cpu]
+      [--device cpu] [--no-autotune]
 
 Counting and scoring run on the card unless ``--device cpu`` asks for the
 CPU (where the data planes resolve to the plain PyTorch counts).
@@ -41,7 +41,8 @@ def _run_stream(T: np.ndarray, cfg: StreamingConfig, profile_name: str,
     engine = RecommendationEngine(
         RuleIndex.build([], n_items), PROFILES[profile_name](),
         ServingConfig(k=min(serve_k, n_items), data_plane=cfg.data_plane,
-                      policy=policy, split=cfg.split, device=cfg.device))
+                      policy=policy, split=cfg.split,
+                      autotune=cfg.autotune, device=cfg.device))
     miner = StreamingMiner(n_items, profile=profile, config=cfg,
                            engine=engine, policy=policy)
     report = miner.run(TransactionStream(T, cfg.batch_size),
@@ -56,7 +57,8 @@ def stream(n_tx: int = 8192, n_items: int = 128, window: int = 2048,
            data_plane: str = "auto", n_tiles: int = 8,
            refresh_every: int = 1, revalidate_every: int = 0,
            serve_k: int = 5, seed: int = 0, top: int = 10,
-           smoke: bool = False, device: str = "cuda"):
+           smoke: bool = False, autotune: bool = True,
+           device: str = "cuda"):
     if smoke:                       # CI-sized: parity is the point, not scale
         n_tx, n_items = min(n_tx, 1536), min(n_items, 48)
         window, batch = min(window, 512), min(batch, 64)
@@ -82,7 +84,7 @@ def stream(n_tx: int = 8192, n_items: int = 128, window: int = 2048,
                           min_support=min_support,
                           min_confidence=min_confidence, n_tiles=n_tiles,
                           policy=policy, split=split, data_plane=data_plane,
-                          device=device,
+                          autotune=autotune, device=device,
                           refresh_every=refresh_every,
                           revalidate_every=revalidate_every)
 
@@ -168,7 +170,7 @@ def main():
                args.profile, args.policy, args.split, args.data_plane,
                args.n_tiles, args.refresh_every, args.revalidate_every,
                args.serve_k, args.seed, smoke=args.smoke,
-               device=args.device)
+               autotune=args.autotune, device=args.device)
     except AssertionError as e:
         print(f"[stream] SMOKE FAILED: {e}", file=sys.stderr)
         raise SystemExit(1)

@@ -56,10 +56,12 @@ def make_miner(baskets: Baskets,
 
     ``auto`` measures the dataset (density stats come straight from the
     slab/bitmap/id-lists, no densification) and routes through the
-    algorithm cost model — the H100 roofline unless ``model`` scripts the
-    rates; the returned :class:`AlgorithmChoice` carries the full evidence
-    trail (``None`` when the algorithm was explicit).  The miner counts on
-    ``config.device``: the card by default.
+    algorithm cost model — seeded from the autotune cache's walls measured
+    on ``config.device``, the H100 roofline on a cold cache, unless
+    ``model`` scripts the rates; the returned :class:`AlgorithmChoice`
+    carries the full evidence trail (``None`` when the algorithm was
+    explicit).  The miner counts on ``config.device``: the card by
+    default.
 
     ``son`` (a :class:`repro_torch.mining.son.SONConfig`) routes to the
     out-of-core two-pass :class:`repro_torch.mining.son.SONMiner` instead —
@@ -80,7 +82,8 @@ def make_miner(baskets: Baskets,
         # form; density_stats measures it without densifying
         stats = density_stats(baskets)
         choice = select_algorithm(baskets, config.abs_support(stats.n_tx),
-                                  model=model, stats=stats)
+                                  model=model, stats=stats,
+                                  device=config.device)
         algorithm = choice.algorithm
     cls = EclatMiner if algorithm == "eclat" else MarketBasketPipeline
     return cls(profile=profile, config=config, policy=policy), choice

@@ -20,9 +20,10 @@ each round then touches ``candidates × n_tx/32`` words instead of
 Everything around the formulation is identical to the Apriori plane: same
 ``generate_candidates``/``generate_rules`` control plane, same min-support
 semantics, same ``Runtime`` phase routing (serial candgen/columnize/rules +
-tiled map rounds under ``policy=static|dynamic``), same ``PipelineReport``
-shape.  Counting runs on ``PipelineConfig.device``: the ``intersect_count``
-CUDA kernel on the card by default, its plain version on the CPU.
+tiled map rounds under ``policy=static|dynamic|costmodel``), same
+``PipelineReport`` shape.  Counting runs on ``PipelineConfig.device``:
+the ``intersect_count`` CUDA kernel on the card by default, its plain
+version on the CPU.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ from repro_torch.core.power import PowerModel
 from repro_torch.core.rules import generate_rules
 from repro_torch.core.scheduler import MBScheduler, TaskSpec
 from repro_torch.data.sparse import SparseSlab, pack_tid_columns
+from repro_torch.kernels.autotune.cache import plane_tuning
 from repro_torch.kernels.support_count.ops import intersect_count
 from repro_torch.kernels.support_count.ref import intersect_count_ref
 from repro_torch.pipeline.dataplane import resolve_backend
@@ -48,7 +50,8 @@ from repro_torch.pipeline.pipeline import (Baskets, PipelineConfig,
                                            ingest_baskets)
 from repro_torch.pipeline.report import PipelineReport, RoundReport
 from repro_torch.runtime import (MeasuredPhase, Runtime, SlabPool,
-                                 SwitchingPolicy, TransferMeter, donated_add,
+                                 SwitchingPolicy, TransferMeter,
+                                 autotuned_costmodel, donated_add,
                                  donated_and)
 
 WORD_BITS = 32
@@ -78,6 +81,11 @@ class EclatMiner:
         self.config = config or PipelineConfig()
         cfg = self.config
         policy = policy if policy is not None else cfg.policy
+        if policy == "costmodel" and cfg.autotune:
+            # this plane's hot loop is the intersect kernel, so the cost
+            # model plans on *its* measured walls, not support_count's
+            policy = autotuned_costmodel("intersect_count",
+                                         device=cfg.device)
         self.runtime = Runtime(
             self.profile,
             policy=policy,
@@ -91,6 +99,8 @@ class EclatMiner:
         self.cluster = SimulatedCluster(self.profile, self.scheduler,
                                         power=None)  # ledger prices energy
         self.backend = resolve_backend(cfg.data_plane, self.device)
+        # the intersect kernel has one variant: no pin, only the cache
+        self.tuning = plane_tuning(None, cfg.autotune)
         # round-persistent count accumulators (pipelined rounds)
         self.slabs = SlabPool(self.device)
 
@@ -114,7 +124,7 @@ class EclatMiner:
     def _count(self, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         """Row-aligned intersection counts [M] int32 (backend-dispatched)."""
         if self.backend == "cuda":
-            return intersect_count(A, B)
+            return intersect_count(A, B, tuning=self.tuning)
         return intersect_count_ref(A, B)
 
     def _pair_tiles(self, A: torch.Tensor, B: torch.Tensor

@@ -1,4 +1,4 @@
-"""Algorithm auto-selection — the formulation cost model priced on measured
+"""Algorithm auto-selection — ``CostModelPolicy`` extended with measured
 density/sparsity features.
 
 The paper's pitch is heterogeneous cores running *the right work*; the
@@ -10,10 +10,12 @@ Which wins depends on the dataset, so ``auto`` prices both formulations'
 dominant k=2 round on the measured :class:`repro_torch.data.sparse.DensityStats`
 and picks the cheaper one.
 
-Rates: per kernel, ``AlgorithmCostModel.kernel_rates`` holds an effective
-(peak, bandwidth) pair; a kernel without one prices at the H100 data-sheet
-roofline (``repro_torch.launch.roofline``).  The port has no autotune cache
-yet, so the default model prices both kernels at the roofline.
+Rate seeding follows the same ladder as the switching policies: per
+kernel, effective peak/bandwidth come from the autotune cache's walls
+measured on the device the mine runs on
+(``CostModelPolicy.from_autotune``); a cold/corrupt/other-device cache, or
+a card that is not there, degrades that kernel to the H100 data-sheet
+roofline (``repro_torch.launch.roofline``) — never raises.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import numpy as np
 from repro_torch.data.sparse import BasketsLike, DensityStats, density_stats
 from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
 from repro_torch.launch.tuning import shape_flops_bytes
+from repro_torch.runtime.policies import CostModelPolicy
 
 WORD_BITS = 32
 
@@ -44,7 +47,7 @@ class AlgorithmChoice:
     algorithm: str                       # "apriori" | "eclat"
     est_cost_s: Dict[str, float]         # per-algorithm modeled seconds
     features: Dict[str, float]           # density stats + derived counts
-    cost_source: Dict[str, str]          # per-kernel rate source
+    cost_source: Dict[str, str]          # per-kernel: "autotune"|"roofline"
 
     def summary(self) -> str:
         costs = ", ".join(f"{a}={s:.2e}s" for a, s in
@@ -68,6 +71,24 @@ class AlgorithmCostModel:
                  cost_source: Optional[Dict[str, str]] = None):
         self.kernel_rates = dict(kernel_rates or {})
         self.cost_source = dict(cost_source or {})
+
+    @classmethod
+    def from_autotune(cls, cache=None, device="cuda") -> "AlgorithmCostModel":
+        """Seed every formulation's kernel from its measured cache walls
+        on ``device``; per-kernel roofline fallback on a cold cache or
+        without the card (never raises)."""
+        from repro_torch.kernels.autotune.cache import default_cache
+        cache = cache if cache is not None else default_cache()
+        rates: Dict[str, Tuple[float, float]] = {}
+        source: Dict[str, str] = {}
+        for kernel in set(ALGORITHM_KERNELS.values()):
+            try:
+                pol = CostModelPolicy.from_autotune(cache, kernel, device)
+                rates[kernel] = (pol.peak_flops, pol.hbm_bw)
+                source[kernel] = pol.cost_source          # "autotune"
+            except (ValueError, RuntimeError):
+                source[kernel] = "roofline"
+        return cls(kernel_rates=rates, cost_source=source)
 
     # ------------------------------------------------------------------
     def _seconds(self, kernel: str, shape: Tuple[int, ...]) -> float:
@@ -118,11 +139,13 @@ class AlgorithmCostModel:
 
 def select_algorithm(baskets: BasketsLike, min_sup_abs: int,
                      model: Optional[AlgorithmCostModel] = None,
-                     stats: Optional[DensityStats] = None) -> AlgorithmChoice:
-    """Measure the dataset's density features and pick a formulation."""
+                     stats: Optional[DensityStats] = None,
+                     device="cuda") -> AlgorithmChoice:
+    """Measure the dataset's density features and pick a formulation
+    (priced, without a ``model``, at the rates measured on ``device``)."""
     if stats is None:
         stats = density_stats(baskets)
-    model = model or AlgorithmCostModel()
+    model = model or AlgorithmCostModel.from_autotune(device=device)
     return model.estimate(stats, min_sup_abs)
 
 
@@ -167,13 +190,13 @@ def partition_stats(stats: DensityStats, partition_rows: int) -> DensityStats:
 
 def select_partition_algorithm(stats: DensityStats, partition_rows: int,
                                min_sup_abs: int,
-                               model: Optional[AlgorithmCostModel] = None
-                               ) -> AlgorithmChoice:
+                               model: Optional[AlgorithmCostModel] = None,
+                               device="cuda") -> AlgorithmChoice:
     """Auto-selection for the SON plane: price both formulations on the
     *partition-sized* problem (that is where the map rounds actually run)
     at the partition-scaled local threshold, and pick once for all
     partitions."""
     ps = partition_stats(stats, partition_rows)
-    model = model or AlgorithmCostModel()
+    model = model or AlgorithmCostModel.from_autotune(device=device)
     return model.estimate(ps, local_min_support(min_sup_abs, ps.n_tx,
                                                 stats.n_tx))

@@ -66,6 +66,7 @@ from repro_torch.core.rules import generate_rules
 from repro_torch.core.scheduler import MBScheduler, TaskSpec
 from repro_torch.data.baskets import pad_items
 from repro_torch.data.sparse import DensityStats, SparseSlab, density_stats
+from repro_torch.kernels.autotune.cache import plane_tuning
 from repro_torch.mining.select import (AlgorithmChoice, local_min_support,
                                        select_partition_algorithm)
 from repro_torch.pipeline.dataplane import DataPlane, uniform_tiles
@@ -73,7 +74,8 @@ from repro_torch.pipeline.pipeline import (Baskets, PipelineConfig,
                                            PipelineResult, support_flops)
 from repro_torch.pipeline.report import PipelineReport
 from repro_torch.runtime import (MeasuredPhase, Runtime, SlabPool,
-                                 SwitchingPolicy, TransferMeter, donated_add)
+                                 SwitchingPolicy, TransferMeter,
+                                 autotuned_costmodel, donated_add)
 
 _META_FILE = "corpus.json"
 
@@ -175,8 +177,11 @@ class SONMiner:
         # sub-miners resolve their own policy from this (a shared resolved
         # DynamicPolicy instance would leak EWMA state across planes)
         self._policy_arg = policy if policy is not None else cfg.policy
+        policy = self._policy_arg
+        if policy == "costmodel" and cfg.autotune:
+            policy = autotuned_costmodel("support_count", device=cfg.device)
         self.runtime = Runtime(
-            self.profile, policy=self._policy_arg, split=cfg.split,
+            self.profile, policy=policy, split=cfg.split,
             power=power if power is not None else cfg.power,
             scheduler=scheduler, meter=TransferMeter(cfg.device))
         self.scheduler = self.runtime.scheduler
@@ -184,7 +189,8 @@ class SONMiner:
         self.cluster = SimulatedCluster(self.profile, self.scheduler,
                                         power=None)  # ledger prices energy
         self.data_plane = DataPlane(cfg.data_plane, m_bucket=cfg.m_bucket,
-                                    tuning=cfg.tuning,
+                                    tuning=plane_tuning(cfg.tuning,
+                                                        cfg.autotune),
                                     meter=self.runtime.meter)
         self.slabs = SlabPool(self.runtime.meter.device)
         self.algorithm_choice: Optional[AlgorithmChoice] = None
@@ -397,7 +403,7 @@ class SONMiner:
         algorithm = cfg.algorithm
         if algorithm == "auto":
             self.algorithm_choice = select_partition_algorithm(
-                stats, son.partition_rows, min_sup)
+                stats, son.partition_rows, min_sup, device=cfg.device)
             algorithm = self.algorithm_choice.algorithm
 
         # ---- pass 0: spill (fresh) / validate the workdir (resume) -----

@@ -4,7 +4,8 @@ The paper's hot spot (Apriori step 2) runs on one of two backends:
 
 * ``cuda`` — the hand-written kernels in
   :mod:`repro_torch.kernels.support_count` (the default on a CUDA device;
-  ``tuning`` picks the ``packed`` or ``mxu`` variant).
+  ``tuning`` picks the ``packed`` or ``mxu`` variant: the autotune cache,
+  the roofline-seeded default or a pin).
 * ``ref`` — the plain PyTorch count (the default on the CPU).
 
 Shape discipline keeps every round's launches alike: the pipeline splits
@@ -18,12 +19,12 @@ true candidate count rather than trusting zeros.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.support_count.ops import resolve_variant
+from repro_torch.kernels.support_count.ops import check_tuning
 from repro_torch.kernels.support_count.ops import support_count as _kernel_count
 from repro_torch.kernels.support_count.ref import support_count_ref as _ref_count
 from repro_torch.runtime.transfers import TransferMeter
@@ -79,7 +80,7 @@ class DataPlane:
     """
 
     def __init__(self, kind: str = "auto", m_bucket: int = 128,
-                 tuning: Optional[dict] = None,
+                 tuning: Any = None,
                  meter: Optional[TransferMeter] = None):
         if m_bucket <= 0 or m_bucket % 128:
             raise ValueError(
@@ -87,7 +88,7 @@ class DataPlane:
         self.meter = meter if meter is not None else TransferMeter()
         self.backend = resolve_backend(kind, self.meter.device)
         self.m_bucket = m_bucket
-        resolve_variant(tuning)          # reject a bad pin before any round
+        check_tuning(tuning)             # reject a bad pin before any round
         self.tuning = tuning
         self._C: Optional[torch.Tensor] = None
         self._m_true = 0

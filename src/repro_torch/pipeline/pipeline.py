@@ -18,7 +18,7 @@ The control plane (candidate generation, rule enumeration) is host Python
 through the shared :class:`repro.runtime.Runtime`, which owns the
 MBScheduler + PowerModel + phase ledger and performs assignment, policy
 feedback and accounting exactly once per phase.  The switching policy
-(``static`` | ``dynamic``) is a config knob; execution stays in
+(``static`` | ``dynamic`` | ``costmodel``) is a config knob; execution stays in
 :class:`SimulatedCluster`, which honors whatever assignment the policy
 planned.  Counting runs on ``PipelineConfig.device``: the card by default,
 the CPU when the caller asks for it.
@@ -43,11 +43,13 @@ from repro_torch.core.rules import Rule, generate_rules
 from repro_torch.core.scheduler import MBScheduler, TaskSpec
 from repro_torch.data.baskets import pack_transactions, pad_items
 from repro_torch.data.sparse import SparseSlab, is_binary
+from repro_torch.kernels.autotune.cache import plane_tuning
 from repro_torch.pipeline.dataplane import DataPlane, uniform_tiles
 from repro_torch.pipeline.devgen import DeviceLattice
 from repro_torch.pipeline.report import PipelineReport, RoundReport
 from repro_torch.runtime import (MeasuredPhase, Runtime, SlabPool,
-                                 SwitchingPolicy, TransferMeter, donated_add)
+                                 SwitchingPolicy, TransferMeter,
+                                 autotuned_costmodel, donated_add)
 from repro_torch.runtime.policies import check_policy_name
 
 Baskets = Union[np.ndarray, SparseSlab, Sequence[Sequence[int]]]
@@ -106,13 +108,18 @@ class PipelineConfig:
     # "per_tile" is the legacy sync-per-tile path, kept as the A/B baseline.
     round_execution: str = "pipelined"
     n_tiles: int = 32
-    policy: str = "static"          # switching: static | dynamic
+    policy: str = "static"          # switching: static | dynamic | costmodel
     split: str = "lpt"              # tile split: equal | proportional | lpt
     data_plane: str = "auto"        # auto | cuda | ref
     m_bucket: int = 128             # candidate-batch rounding (kernel lanes)
-    # support_count variant on the cuda data plane: None = "packed";
-    # {"variant": "mxu"} pins the int8 tensor-core kernel
+    # support_count variant on the cuda data plane: {"variant": "packed"}
+    # or {"variant": "mxu"} pins a kernel; None leaves it to autotune
     tuning: Optional[dict] = None
+    # Kernel autotuning: True = the checked-in winner cache picks the
+    # variant (and, under the costmodel policy, its measured walls replace
+    # the data-sheet roofline constants); False = roofline-seeded defaults
+    # everywhere.  A tuning pin wins over either.
+    autotune: bool = True
     # where counting runs: the card unless the caller asks for "cpu"
     device: str = "cuda"
     power: str = "cpu"              # cpu | tpu_v5e | none
@@ -184,6 +191,9 @@ class MarketBasketPipeline:
         self.config = config or PipelineConfig()
         cfg = self.config
         policy = policy if policy is not None else cfg.policy
+        if policy == "costmodel" and cfg.autotune:
+            # measured kernel walls replace the data-sheet constants
+            policy = autotuned_costmodel("support_count", device=cfg.device)
         self.runtime = Runtime(
             self.profile,
             policy=policy,
@@ -202,7 +212,8 @@ class MarketBasketPipeline:
                 "(expected 'pipelined' or 'per_tile')")
         self.data_plane = DataPlane(cfg.data_plane,
                                     m_bucket=cfg.m_bucket,
-                                    tuning=cfg.tuning,
+                                    tuning=plane_tuning(cfg.tuning,
+                                                        cfg.autotune),
                                     meter=self.runtime.meter)
         # round-persistent count accumulators, keyed by bucket shape
         self.slabs = SlabPool(self.device)

@@ -80,7 +80,7 @@ class PipelineReport:
     """The full run: config echo, per-round records, and ledger totals."""
 
     backend: str                  # "cuda" | "ref"
-    policy: str                   # switching policy: static|dynamic
+    policy: str                   # switching policy: static|dynamic|costmodel
     profile_speeds: List[float]
     n_tx: int
     n_items: int

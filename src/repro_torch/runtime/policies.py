@@ -13,10 +13,13 @@ what happens to the plan as measurements arrive.
   semantics), and a planned-progress checkpoint detects stragglers and
   speculatively re-issues their tail tiles (``speculate`` +
   ``apply_moves``) before execution commits.
-
-The reference's third policy, ``costmodel``, seeds tile costs from roofline
-constants and a kernel autotune cache measured on its own hardware; it
-waits for the port's autotuner and is refused by name until then.
+* :class:`CostModelPolicy` — seeds tile costs from roofline estimates
+  instead of raw byte counts: a tile's planning cost is
+  ``max(flops / peak_flops, bytes / hbm_bw)``, renormalized to the byte
+  work-unit scale so time/energy stay on one axis.  The rates are the H100
+  data sheet's (``launch/roofline``) or, through :meth:`from_autotune`,
+  the effective rates of the kernel walls the autotuner measured on the
+  card.
 
 Policies are deliberately stateless about *execution*: they see the task,
 the costs, the assignment and the measurement, and talk only to the
@@ -151,24 +154,127 @@ class DynamicPolicy(StaticPolicy):
                 runtime.profile.observe(d, float(work[d]), float(busy[d]))
 
 
+class CostModelPolicy(StaticPolicy):
+    """Static planning over roofline-seeded tile costs.
+
+    Tile planning cost = ``max(flops / peak_flops, bytes / hbm_bw)``
+    seconds at peak, rescaled so the total equals the byte total (the
+    scheduler's speeds are byte-flavored work units per second).  Per-tile
+    flops come from the caller's ``tile_flops`` estimate; without one,
+    ``flops_per_byte`` is applied uniformly — which degenerates to the
+    byte seeding, exactly as it should when no intensity skew is known.
+
+    Peak/bandwidth default to the H100 data-sheet roofline constants
+    (``cost_source = "roofline"``); :meth:`from_autotune` replaces them
+    with *measured* effective rates from an autotune cache
+    (``cost_source = "autotune"`` — the feedback loop: the scheduler plans
+    on what the card actually did, not on constants).
+    """
+
+    name = "costmodel"
+    cost_source = "roofline"
+
+    def __init__(self, peak_flops: Optional[float] = None,
+                 hbm_bw: Optional[float] = None,
+                 flops_per_byte: float = 0.0):
+        from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+        self.peak_flops = PEAK_FLOPS if peak_flops is None else peak_flops
+        self.hbm_bw = HBM_BW if hbm_bw is None else hbm_bw
+        self.flops_per_byte = flops_per_byte
+
+    @classmethod
+    def from_hlo(cls, hlo_text: str, **kwargs) -> "CostModelPolicy":
+        """The reference seeds the intensity from a compiled XLA module's
+        HLO, which has no CUDA counterpart: not ported."""
+        raise NotImplementedError(
+            "CostModelPolicy.from_hlo reads XLA HLO, which a CUDA program "
+            "does not have (ROADMAP item 6); seed the policy with "
+            "from_autotune or explicit rates")
+
+    @classmethod
+    def from_autotune(cls, cache, kernel: str, device=None,
+                      **kwargs) -> "CostModelPolicy":
+        """Seed effective peak/bandwidth from measured autotune entries.
+
+        Each cache entry carries the shape it was tuned at and the
+        winner's measured wall; the task-intrinsic (flops, bytes) of that
+        shape (``launch.tuning.shape_flops_bytes``) turn the wall into an
+        achieved flops/s and bytes/s — the median over entries replaces
+        the data-sheet constants, and the median arithmetic intensity
+        seeds ``flops_per_byte``.  ``device`` is the one the plane runs on
+        (``None``: the card).  Raises ``ValueError`` when the cache has no
+        measured entries for this (kernel, device): the caller decides
+        whether to fall back to constants, never silently.
+        """
+        from repro_torch.launch.tuning import shape_flops_bytes
+        entries = [e for e in cache.entries_for(kernel, device)
+                   if e.get("cost_us", 0) > 0 and e.get("shape")]
+        if not entries:
+            raise ValueError(
+                f"autotune cache has no measured entries for {kernel!r} on "
+                f"device {device or 'cuda'} — cannot seed measured costs")
+        peaks, bws, intens = [], [], []
+        for e in entries:
+            flops, bytes_ = shape_flops_bytes(kernel, tuple(e["shape"]))
+            wall_s = float(e["cost_us"]) * 1e-6
+            peaks.append(flops / wall_s)
+            bws.append(bytes_ / wall_s)
+            intens.append(flops / bytes_)
+        policy = cls(peak_flops=float(np.median(peaks)),
+                     hbm_bw=float(np.median(bws)),
+                     flops_per_byte=float(np.median(intens)), **kwargs)
+        policy.cost_source = "autotune"
+        return policy
+
+    def tile_costs(self, runtime, task, tile_costs, tile_flops=None):
+        bytes_ = np.asarray(tile_costs, dtype=np.float64)
+        total = float(bytes_.sum())
+        if total <= 0:
+            return bytes_
+        if tile_flops is None:
+            flops = bytes_ * self.flops_per_byte
+        else:
+            flops = np.asarray(tile_flops, dtype=np.float64)
+        roofline_s = np.maximum(flops / self.peak_flops,
+                                bytes_ / self.hbm_bw)
+        rs = float(roofline_s.sum())
+        if rs <= 0:
+            return bytes_
+        # renormalize to the byte work-unit scale: same total work,
+        # redistributed by roofline intensity
+        return roofline_s * (total / rs)
+
+
+def autotuned_costmodel(kernel: str, cache=None,
+                        device="cuda") -> CostModelPolicy:
+    """Costmodel policy seeded from the autotune cache when it can be.
+
+    The planes call this when their config asks for the ``costmodel``
+    policy by name with autotuning on: measured entries for *kernel* on
+    *device* replace the data-sheet constants (``cost_source =
+    "autotune"``); a cold/corrupt/other-device cache, or a card that is
+    not there, degrades to the roofline-constant policy — autotuning may
+    only make planning better-informed, never take a plane down."""
+    if cache is None:
+        from repro_torch.kernels.autotune.cache import default_cache
+        cache = default_cache()
+    try:
+        return CostModelPolicy.from_autotune(cache, kernel, device)
+    except (ValueError, RuntimeError):
+        return CostModelPolicy()
+
+
 _POLICIES = {
     "static": StaticPolicy,
     "dynamic": DynamicPolicy,
+    "costmodel": CostModelPolicy,
 }
 
 POLICY_NAMES = tuple(sorted(_POLICIES))
 
-# Known to the reference but not yet ported (needs measured H100 rates).
-UNPORTED_POLICIES = ("costmodel",)
-
 
 def check_policy_name(policy: str) -> None:
-    """Raise ``ValueError`` unless ``policy`` names a ported policy."""
-    if policy in UNPORTED_POLICIES:
-        raise ValueError(
-            f"switching policy {policy!r} is not ported yet: it plans from "
-            "kernel rates measured by an autotuner the port does not have "
-            f"(use one of: {', '.join(POLICY_NAMES)})")
+    """Raise ``ValueError`` unless ``policy`` names a known policy."""
     if policy not in _POLICIES:
         raise ValueError(f"unknown switching policy {policy!r} "
                          f"(known: {', '.join(POLICY_NAMES)})")

@@ -55,9 +55,11 @@ from repro_torch.core.hetero import HeterogeneityProfile
 from repro_torch.core.power import PowerModel
 from repro_torch.core.scheduler import MBScheduler
 from repro_torch.kernels.rule_match.ops import rule_topk
-from repro_torch.kernels.support_count.ops import resolve_variant
+from repro_torch.kernels.autotune.cache import plane_tuning
+from repro_torch.kernels.support_count.ops import check_tuning
 from repro_torch.pipeline.dataplane import resolve_backend
-from repro_torch.runtime import ExecLedger, Runtime, SwitchingPolicy
+from repro_torch.runtime import (ExecLedger, Runtime, SwitchingPolicy,
+                                 autotuned_costmodel)
 from repro_torch.runtime.policies import check_policy_name
 from repro_torch.serving.admission import Handle, Query
 from repro_torch.serving.cache import Recommendation, ResultCache
@@ -76,9 +78,12 @@ class ServingConfig:
     k: int = 5                      # recommendations per query
     batch_buckets: Tuple[int, ...] = (1, 8, 64)   # admission coalescing sizes
     data_plane: str = "auto"        # auto | cuda | ref
-    # rule_match variant on the cuda data plane: None = "packed";
-    # {"variant": "mxu"} pins the int8 tensor-core kernel
+    # rule_match variant on the cuda data plane: {"variant": "packed"} or
+    # {"variant": "mxu"} pins a kernel; None leaves it to autotune
     tuning: Optional[dict] = None
+    # rule-match variant from the winner cache (and, under the costmodel
+    # policy, its measured walls replace the data-sheet constants)
+    autotune: bool = True
     # where scoring runs: the card unless the caller asks for "cpu"
     device: str = "cuda"
     cache_size: int = 4096          # LRU entries; 0 disables caching
@@ -106,7 +111,7 @@ class ServingConfig:
 
     def __post_init__(self):
         check_policy_name(self.policy)
-        resolve_variant(self.tuning)     # reject a bad pin before serving
+        check_tuning(self.tuning, "rule_match")  # reject a bad pin early
         if (torch.device(self.device).type == "cuda"
                 and not torch.cuda.is_available()):
             raise RuntimeError(
@@ -210,6 +215,9 @@ class RecommendationEngine:
                              f"{index.n_items}]")
         self.profile = profile or HeterogeneityProfile.paper()
         policy = policy if policy is not None else cfg.policy
+        if policy == "costmodel" and cfg.autotune:
+            # measured rule-match walls replace the data-sheet constants
+            policy = autotuned_costmodel("rule_match", device=cfg.device)
         self.runtime = Runtime(
             self.profile,
             policy=policy,
@@ -290,7 +298,7 @@ class RecommendationEngine:
             torch.from_numpy(Q).to(self.device), self._dev["ante"],
             self._dev["sizes"], self._dev["conf"], self._dev["cons"],
             k=cfg.k, n_items=self.index.n_items, backend=self.backend,
-            tuning=cfg.tuning)
+            tuning=plane_tuning(cfg.tuning, cfg.autotune))
         both = torch.stack([items, scores.view(torch.int32)]).cpu().numpy()
         items, scores = both[0], both[1].view(np.float32)
         return [[(int(i), float(s)) for i, s in zip(items[r], scores[r])

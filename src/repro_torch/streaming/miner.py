@@ -39,11 +39,12 @@ the rules derived from them) match the from-scratch mine bit for bit.
 All phases are routed through the shared :class:`repro_torch.runtime.Runtime`
 (``run_serial`` / ``run_phase``), so the ledger prices streaming time,
 energy and core switches exactly like the other planes, and the
-``policy=`` knob (static | dynamic) is honored: the delta and validation
-map phases are planned by the switching policy over the heterogeneity
-profile.  Counting runs on ``StreamingConfig.device`` through the same
-``support_count`` data plane as the pipeline: the card's kernels by
-default, the plain count on the CPU when the caller asks for it.  The
+``policy=`` knob (static | dynamic | costmodel) is honored: the delta and
+validation map phases are planned by the switching policy over the
+heterogeneity profile.  Counting runs on ``StreamingConfig.device``
+through the same ``support_count`` data plane as the pipeline: the
+card's kernels by default, the plain count on the CPU when the caller
+asks for it.  The
 delta and validation map phases record their host wall in the ledger
 (``PhaseRecord.host_time_s``), so a run shows where a batch's time went.
 """
@@ -62,12 +63,14 @@ from repro_torch.core.itemsets import (AprioriResult, generate_candidates,
 from repro_torch.core.power import PowerModel
 from repro_torch.core.rules import Rule, generate_rules
 from repro_torch.core.scheduler import MBScheduler, TaskSpec
+from repro_torch.kernels.autotune.cache import plane_tuning
 from repro_torch.pipeline.dataplane import DataPlane, uniform_tiles
 from repro_torch.pipeline.pipeline import (PipelineConfig, candgen_cost,
                                            support_flops)
 from repro_torch.runtime import (ExecLedger, LedgerTotals, MeasuredPhase,
                                  Runtime, SlabPool, SwitchingPolicy,
-                                 TransferMeter, donated_add)
+                                 TransferMeter, autotuned_costmodel,
+                                 donated_add)
 from repro_torch.runtime.policies import check_policy_name
 from repro_torch.serving.engine import RecommendationEngine
 from repro_torch.serving.index import RuleIndex
@@ -99,13 +102,13 @@ class StreamingConfig:
     max_k: int = 0                  # 0 = mine until no candidates survive
     n_tiles: int = 8                # validation-pass map tiles
     round_execution: str = "pipelined"  # pipelined | per_tile (see PipelineConfig)
-    policy: str = "static"          # switching: static | dynamic
+    policy: str = "static"          # switching: static | dynamic | costmodel
     split: str = "lpt"              # tile split: equal | proportional | lpt
     data_plane: str = "auto"        # auto | cuda | ref
     m_bucket: int = 128             # candidate-batch rounding (kernel lanes)
-    # support_count variant on the cuda data plane: None = "packed";
-    # {"variant": "mxu"} pins the int8 tensor-core kernel
+    # support_count variant pin on the cuda data plane (see PipelineConfig)
     tuning: Optional[dict] = None
+    autotune: bool = True           # winner cache on (see PipelineConfig)
     # where counting runs: the card unless the caller asks for "cpu"
     device: str = "cuda"
     power: str = "cpu"              # cpu | tpu_v5e | none
@@ -136,7 +139,8 @@ class StreamingConfig:
                   round_execution=self.round_execution,
                   policy=self.policy, split=self.split,
                   data_plane=self.data_plane, m_bucket=self.m_bucket,
-                  tuning=self.tuning, device=self.device,
+                  tuning=self.tuning, autotune=self.autotune,
+                  device=self.device,
                   power=self.power,
                   serial_unit_cost=self.serial_unit_cost,
                   serial_min_speed=self.serial_min_speed)
@@ -250,6 +254,9 @@ class StreamingMiner:
                 f"round_execution must be 'pipelined' or 'per_tile', "
                 f"got {cfg.round_execution!r}")
         policy = policy if policy is not None else cfg.policy
+        if policy == "costmodel" and cfg.autotune:
+            # measured kernel walls replace the data-sheet constants
+            policy = autotuned_costmodel("support_count", device=cfg.device)
         self.runtime = Runtime(
             self.profile,
             policy=policy,
@@ -260,7 +267,8 @@ class StreamingMiner:
         self.scheduler = self.runtime.scheduler
         self.device = self.runtime.meter.device
         self.data_plane = DataPlane(cfg.data_plane, m_bucket=cfg.m_bucket,
-                                    tuning=cfg.tuning,
+                                    tuning=plane_tuning(cfg.tuning,
+                                                        cfg.autotune),
                                     meter=self.runtime.meter)
         self.slabs = SlabPool(self.device)
         self.window = SlidingWindow(cfg.window, n_items)

@@ -49,6 +49,7 @@ from repro_torch.mining import (AlgorithmCostModel, EclatMiner,  # noqa: E402
                                 select_partition_algorithm)
 from repro_torch.pipeline import (MarketBasketPipeline,  # noqa: E402
                                   PipelineConfig)
+from test_torch_autotune import costmodel_pair  # noqa: E402
 
 # (BasketConfig kwargs, min_support, n_tiles): test_eclat.py's dense corpus
 # and the quickstart corpus
@@ -122,9 +123,16 @@ def _assert_same_mine(ref, port):
 
 
 def _mine_both(port_in, ref_in, failures=(), **common):
-    ref = RefEclat(config=RefConfig(data_plane="ref", **common)).run(
+    # costmodel: equal instances for both packages, fed the intersect
+    # kernel's measured walls (see test_torch_autotune.costmodel_pair)
+    ref_policy, port_policy = (costmodel_pair("intersect_count")
+                               if common.get("policy") == "costmodel"
+                               else (None, None))
+    ref = RefEclat(config=RefConfig(data_plane="ref", **common),
+                   policy=ref_policy).run(
         ref_in, failures=[RefFailureEvent(*f) for f in failures])
-    port = EclatMiner(config=PipelineConfig(device="cpu", **common)).run(
+    port = EclatMiner(config=PipelineConfig(device="cpu", **common),
+                      policy=port_policy).run(
         port_in, failures=[FailureEvent(*f) for f in failures])
     return ref, port
 
@@ -134,7 +142,7 @@ def _mine_both(port_in, ref_in, failures=(), **common):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("corpus", ["dense", "sparse"])
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 @pytest.mark.parametrize("rexec", ["pipelined", "per_tile"])
 def test_eclat_mines_like_reference(corpus, policy, rexec):
     port_in, ref_in, min_support, n_tiles = _corpus(corpus)
@@ -149,7 +157,7 @@ def test_eclat_mines_like_reference(corpus, policy, rexec):
         assert [p.syncs for p in maps] == [1] * len(maps)
 
 
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 def test_eclat_failure_replan_matches_reference(policy):
     """A core that dies mid-round: the re-plan, switches and energy must
     match the reference's, and the answer must not change."""
@@ -438,19 +446,12 @@ def test_cpu_mines_launch_no_kernel():
 # what is refused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["costmodel_config", "costmodel_policy",
-                                  "son", "unknown_algorithm",
+@pytest.mark.parametrize("case", ["son", "unknown_algorithm",
                                   "unknown_data_plane", "cuda_on_cpu"])
 def test_refused(case, tmp_path):
     T = _dense_small(64, 16, 0)
     cpu = PipelineConfig(device="cpu")
-    if case == "costmodel_config":
-        with pytest.raises(ValueError, match="not ported"):
-            PipelineConfig(device="cpu", policy="costmodel")
-    elif case == "costmodel_policy":
-        with pytest.raises(ValueError, match="not ported"):
-            EclatMiner(config=cpu, policy="costmodel")
-    elif case == "son":
+    if case == "son":
         # out-of-core SON is ported: make_miner routes son= to SONMiner
         miner, choice = make_miner(T, config=cpu, son=SONConfig(
             workdir=str(tmp_path), partition_rows=32))

@@ -78,6 +78,15 @@ print("STREAM", srep.n_batches, srep.backend, streamer.index.version > 0)
 miner, _ = stream(n_tx=512, n_items=24, window=128, batch=64, batches=4,
                   device="cpu")
 print("STREAM CLI", miner.window.n)
+from repro_torch.launch.autotune import autotune
+with tempfile.TemporaryDirectory() as wd:
+    tuned = autotune(out=wd + "/tune.json", smoke=True, device="cpu",
+                     log=lambda line: None)
+cm = MarketBasketPipeline(config=PipelineConfig(
+    min_support=0.05, n_tiles=4, device="cpu", policy="costmodel")).run(T)
+assert cm.supports == res.supports and cm.rules == res.rules
+print("AUTOTUNE", len(tuned), sorted({p.cost_source
+                                      for p in cm.report.ledger.phases}))
 import numpy as np
 import torch
 from repro_torch.configs.base import get_config
@@ -125,6 +134,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "SON 3 6" in out.stdout
     assert "STREAM 6 ref True" in out.stdout
     assert "STREAM CLI 128" in out.stdout
+    assert "AUTOTUNE 3 ['roofline']" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -136,7 +146,7 @@ def test_no_source_imports_jax_or_reference():
     assert len(files) > 20
     for part in ("models", "configs", "launch", "kernels/flash_attention",
                  "kernels/selective_scan", "kernels/rwkv6_wkv", "checkpoint",
-                 "mining", "streaming"):
+                 "mining", "streaming", "kernels/autotune"):
         assert PORT / part / "__init__.py" in files
     for module in ("checkpoint/store.py", "mining/son.py",
                    "streaming/source.py", "streaming/miner.py",

@@ -30,6 +30,7 @@ from repro_torch.pipeline import (MarketBasketPipeline,  # noqa: E402
 from repro_torch.pipeline.dataplane import pad_candidates  # noqa: E402
 from repro_torch.pipeline.devgen import DeviceLattice  # noqa: E402
 from repro_torch.runtime import TransferMeter  # noqa: E402
+from test_torch_autotune import costmodel_pair  # noqa: E402
 
 # (BasketConfig kwargs, min_support, n_tiles): small_db of
 # tests/test_pipeline.py and the quickstart corpus
@@ -64,6 +65,15 @@ def _plain(x):
     return x
 
 
+def _policies(policy):
+    """(reference, port) policy arguments: equal instances for
+    ``costmodel`` (see ``test_torch_autotune.costmodel_pair``), else the
+    configs' names."""
+    if policy == "costmodel":
+        return costmodel_pair("support_count")
+    return None, None
+
+
 def _assert_same_mine(ref, port):
     assert port.supports == ref.supports
     assert [dataclasses.astuple(r) for r in port.rules] == \
@@ -81,31 +91,37 @@ def _assert_same_mine(ref, port):
 
 
 @pytest.mark.parametrize("corpus", sorted(CORPORA))
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 @pytest.mark.parametrize("rexec", ["pipelined", "per_tile"])
 def test_port_mines_like_reference(corpus, policy, rexec):
     T = _corpus(corpus)
     _, min_support, n_tiles = CORPORA[corpus]
     common = dict(min_support=min_support, min_confidence=0.6,
                   n_tiles=n_tiles, policy=policy, round_execution=rexec)
-    ref = RefPipeline(config=RefConfig(data_plane="ref", **common)).run(T)
+    ref_policy, port_policy = _policies(policy)
+    ref = RefPipeline(config=RefConfig(data_plane="ref", **common),
+                      policy=ref_policy).run(T)
     port = MarketBasketPipeline(
-        config=PipelineConfig(device="cpu", **common)).run(T)
+        config=PipelineConfig(device="cpu", **common),
+        policy=port_policy).run(T)
     assert port.report.backend == "ref"
     assert len(port.report.rounds) >= 3 and port.rules
     _assert_same_mine(ref, port)
 
 
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 def test_failure_replan_matches_reference(policy):
     """A core that dies mid-round: the re-plan, switches and energy must
     match the reference's, and the answer must not change."""
     T = _corpus("small_db")
     common = dict(min_support=0.05, n_tiles=8, policy=policy)
-    ref = RefPipeline(config=RefConfig(data_plane="ref", **common)).run(
+    ref_policy, port_policy = _policies(policy)
+    ref = RefPipeline(config=RefConfig(data_plane="ref", **common),
+                      policy=ref_policy).run(
         T, failures=[RefFailureEvent(device=3, at_time=20.0)])
     port = MarketBasketPipeline(
-        config=PipelineConfig(device="cpu", **common)).run(
+        config=PipelineConfig(device="cpu", **common),
+        policy=port_policy).run(
             T, failures=[FailureEvent(device=3, at_time=20.0)])
     _assert_same_mine(ref, port)
     assert port.report.total_switches > 0
@@ -223,8 +239,6 @@ def test_ingest_paths_agree():
 
 
 def test_config_refuses_what_the_port_cannot_run():
-    with pytest.raises(ValueError, match="not ported"):
-        PipelineConfig(policy="costmodel", device="cpu")
     with pytest.raises(ValueError):
         MarketBasketPipeline(config=_mk_cfg(data_plane="cuda"))
     with pytest.raises(ValueError):

@@ -34,6 +34,7 @@ from repro_torch.serving import (AsyncServer, BucketLadder,  # noqa: E402
                                  ShedError, SloGovernor, VirtualClock,
                                  WallClock, recommend_bruteforce)
 from repro_torch.serving.cache import ResultCache, basket_key  # noqa: E402
+from test_torch_autotune import costmodel_pair  # noqa: E402
 
 # (BasketConfig kwargs, mining kwargs): the corpus of tests/test_serving.py
 # and the quickstart's
@@ -83,13 +84,20 @@ def _ids(T, n):
 
 
 def _engines(name, **kw):
-    """(reference engine, port engine) over the same corpus and config."""
+    """(reference engine, port engine) over the same corpus and config;
+    under ``costmodel`` each gets an equal instance fed the rule-match
+    kernel's measured walls (see ``test_torch_autotune.costmodel_pair``)."""
     T, ref_rules, port_rules = _mined(name)
     n_items = T.shape[1]
+    ref_policy, port_policy = (costmodel_pair("rule_match")
+                               if kw.get("policy") == "costmodel"
+                               else (None, None))
     ref = RefEngine(RefRuleIndex.build(ref_rules, n_items),
-                    config=RefServingConfig(data_plane="ref", **kw))
+                    config=RefServingConfig(data_plane="ref", **kw),
+                    policy=ref_policy)
     port = RecommendationEngine(RuleIndex.build(port_rules, n_items),
-                                config=ServingConfig(device="cpu", **kw))
+                                config=ServingConfig(device="cpu", **kw),
+                                policy=port_policy)
     return ref, port
 
 
@@ -150,7 +158,7 @@ def test_index_rejects_bad_inputs_and_has_no_store_yet(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", sorted(CORPORA))
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 @pytest.mark.parametrize("arrivals", ["at_once", "exponential"])
 def test_serve_matches_reference_and_oracle(name, policy, arrivals):
     T, ref_rules, port_rules = _mined(name)
@@ -221,11 +229,6 @@ def test_bad_inputs_raise_like_reference():
 def test_config_refuses_what_the_port_cannot_run():
     _, _, port_rules = _mined("mined")
     index = RuleIndex.build(port_rules, 32)
-    with pytest.raises(ValueError, match="not ported"):
-        ServingConfig(policy="costmodel", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        RecommendationEngine(index, config=ServingConfig(device="cpu"),
-                             policy="costmodel")
     with pytest.raises(ValueError):
         ServingConfig(device="cpu", tuning={"variant": "bogus"})
     for plane in ("pallas", "cuda"):                 # cuda needs a card
@@ -284,7 +287,7 @@ def test_cache_lru_eviction_and_disabled_cache():
 # the open loop: AsyncServer against serve() and the reference server
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 def test_async_server_matches_serve_and_reference(policy):
     T, _, port_rules = _mined("mined")
     ids = _ids(T, 48)

@@ -45,6 +45,7 @@ from repro_torch.pipeline import (MarketBasketPipeline,  # noqa: E402
                                   PipelineConfig)
 from repro_torch.serving import (Query, RecommendationEngine,  # noqa: E402
                                  RuleIndex, ServingConfig)
+from test_torch_autotune import costmodel_pair  # noqa: E402
 
 ROWS = 64          # partition size → 3 partitions on the 192-row corpora
 DENSE = dict(n_tx=192, n_items=24, seed=1)
@@ -71,10 +72,20 @@ def _cfg(algorithm="apriori", policy="static", min_support=0.05, **kw):
                 n_tiles=4, **kw)
 
 
+def _policy(common, side):
+    """The policy argument for one package (0 reference, 1 port): equal
+    ``costmodel`` instances fed support_count's measured walls (see
+    ``test_torch_autotune.costmodel_pair``), else the config's name."""
+    if common.get("policy") == "costmodel":
+        return costmodel_pair("support_count")[side]
+    return None
+
+
 def port_son(T, common, workdir, **kw):
     son = SONConfig(workdir=str(workdir), partition_rows=ROWS, **kw)
     miner, choice = make_miner(T, config=PipelineConfig(device="cpu",
-                                                        **common), son=son)
+                                                        **common), son=son,
+                               policy=_policy(common, 1))
     assert choice is None and isinstance(miner, SONMiner)
     return miner.run(T), miner
 
@@ -82,7 +93,8 @@ def port_son(T, common, workdir, **kw):
 def ref_son(T, common, workdir, **kw):
     son = RefSONConfig(workdir=str(workdir), partition_rows=ROWS, **kw)
     miner, _ = ref_make_miner(T, config=RefConfig(data_plane="ref",
-                                                  **common), son=son)
+                                                  **common), son=son,
+                              policy=_policy(common, 0))
     return miner.run(T), miner
 
 
@@ -196,7 +208,7 @@ def test_corpus_fingerprint_is_the_references(dataset, algorithm):
 # bit-identity vs the single-shot pipeline and the reference's SON
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 @pytest.mark.parametrize("dataset,algorithm,min_support", [
     ("dense", "apriori", 0.05),
     ("dense", "eclat", 0.05),
@@ -234,7 +246,7 @@ def test_auto_selects_one_global_algorithm(tmp_path, ref_mine):
     assert result.supports == ref.supports and _rules(result) == _rules(ref)
 
 
-@pytest.mark.parametrize("policy", ["static", "dynamic"])
+@pytest.mark.parametrize("policy", ["static", "dynamic", "costmodel"])
 def test_partition_failures_replan_like_the_reference(tmp_path, policy):
     """A core that dies inside partition 1's local pass re-plans there, as
     the reference's does, and the answer does not change."""
@@ -243,11 +255,13 @@ def test_partition_failures_replan_like_the_reference(tmp_path, policy):
     port, _ = port_son(port_in, common, tmp_path / "port")
     miner, _ = make_miner(port_in, config=PipelineConfig(
         device="cpu", **common), son=SONConfig(
-            workdir=str(tmp_path / "port_f"), partition_rows=ROWS))
+            workdir=str(tmp_path / "port_f"), partition_rows=ROWS),
+        policy=_policy(common, 1))
     failed = miner.run(port_in, {1: [FailureEvent(3, 1.0)]})
     rminer, _ = ref_make_miner(ref_in, config=RefConfig(
         data_plane="ref", **common), son=RefSONConfig(
-            workdir=str(tmp_path / "ref_f"), partition_rows=ROWS))
+            workdir=str(tmp_path / "ref_f"), partition_rows=ROWS),
+        policy=_policy(common, 0))
     ref_failed = rminer.run(ref_in, {1: [RefFailureEvent(3, 1.0)]})
     assert failed.supports == port.supports
     assert _rules(failed) == _rules(port)
@@ -352,8 +366,7 @@ def test_resume_without_spill_errors(tmp_path):
 # what is refused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["mesh", "costmodel_policy",
-                                  "no_son_config", "no_workdir",
+@pytest.mark.parametrize("case", ["mesh", "no_son_config", "no_workdir",
                                   "zero_rows"])
 def test_refused(tmp_path, case):
     cpu = PipelineConfig(device="cpu")
@@ -361,9 +374,6 @@ def test_refused(tmp_path, case):
     if case == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
             SONMiner(config=cpu, son=son, mesh=object())
-    elif case == "costmodel_policy":
-        with pytest.raises(ValueError, match="not ported"):
-            SONMiner(config=cpu, son=son, policy="costmodel")
     elif case == "no_son_config":
         with pytest.raises(ValueError, match="requires a SONConfig"):
             SONMiner(config=cpu)

@@ -52,6 +52,7 @@ from repro_torch.serving import (Query, RecommendationEngine,  # noqa: E402
 from repro_torch.streaming import (SlidingWindow,  # noqa: E402
                                    StreamingConfig, StreamingMiner,
                                    StreamingReport, TransactionStream)
+from test_torch_autotune import costmodel_pair  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 # the fields that time this process, left out of every comparison
@@ -94,10 +95,16 @@ def small_kw(**kw):
 
 
 def _miners(n_items, ref_engine=None, engine=None, **kw):
-    """(reference miner, port miner) over the same config."""
-    ref = RefMiner(n_items, config=RefConfig(**kw), engine=ref_engine)
+    """(reference miner, port miner) over the same config; under
+    ``costmodel`` each gets an equal instance fed support_count's measured
+    walls (see ``test_torch_autotune.costmodel_pair``)."""
+    ref_policy, port_policy = (costmodel_pair("support_count")
+                               if kw.get("policy") == "costmodel"
+                               else (None, None))
+    ref = RefMiner(n_items, config=RefConfig(**kw), engine=ref_engine,
+                   policy=ref_policy)
     port = StreamingMiner(n_items, config=StreamingConfig(device="cpu", **kw),
-                          engine=engine)
+                          engine=engine, policy=port_policy)
     return ref, port
 
 
@@ -238,9 +245,11 @@ def test_window_rows_do_not_alias_caller_buffer():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("rexec", ["pipelined", "per_tile"])
-def test_delta_counters_match_full_recount_between_validations(rexec):
+@pytest.mark.parametrize("policy", ["static", "costmodel"])
+def test_delta_counters_match_full_recount_between_validations(rexec,
+                                                               policy):
     T = _stationary(1024, 32, n_patterns=4, seed=5)
-    ref, port = _miners(32, **small_kw(min_support=0.15,
+    ref, port = _miners(32, **small_kw(min_support=0.15, policy=policy,
                                        round_execution=rexec))
     for a in TransactionStream(T, 64):
         assert _plain(port.process_batch(a)) == _plain(ref.process_batch(a))
@@ -411,14 +420,15 @@ def test_ledger_slice_backs_report_totals():
     assert "StreamingMiner" in report.summary()
 
 
-def test_policy_knob_reaches_every_phase():
+@pytest.mark.parametrize("policy", ["dynamic", "costmodel"])
+def test_policy_knob_reaches_every_phase(policy):
     T = _stationary(512, 32, n_patterns=4, seed=5)
-    ref, port = _miners(32, **small_kw(min_support=0.15, policy="dynamic",
+    ref, port = _miners(32, **small_kw(min_support=0.15, policy=policy,
                                        power="cpu"))
     report = port.run(TransactionStream(T, 64))
     _same_report(ref.run(RefStream(T, 64)), report)
-    assert report.policy == "dynamic"
-    assert all(p.policy == "dynamic" for p in report.ledger.phases)
+    assert report.policy == policy
+    assert all(p.policy == policy for p in report.ledger.phases)
 
 
 # ---------------------------------------------------------------------------
@@ -520,12 +530,7 @@ def test_streaming_report_is_a_plane_report():
     assert isinstance(rep.summary(), str)
 
 
-def test_costmodel_policy_is_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        StreamingConfig(policy="costmodel", device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        StreamingMiner(8, config=StreamingConfig(device="cpu"),
-                       policy="costmodel")
+def test_unknown_policy_and_round_execution_are_refused():
     with pytest.raises(ValueError, match="unknown"):
         StreamingConfig(policy="nope", device="cpu")
     with pytest.raises(ValueError, match="round_execution"):
@@ -583,11 +588,14 @@ def test_cli_flags_follow_the_port():
     args = ap.parse_args([])
     assert (args.device, args.data_plane, args.policy) == \
         ("cuda", "auto", "static")
-    for flag, value in (("--policy", "costmodel"), ("--data-plane", "pallas")):
+    for flag, value in (("--policy", "nope"), ("--data-plane", "pallas")):
         with pytest.raises(SystemExit):
             ap.parse_args([flag, value])
+    assert POLICY_NAMES == ("costmodel", "dynamic", "static")
     for policy in POLICY_NAMES:
         assert ap.parse_args(["--policy", policy]).policy == policy
+    assert args.autotune is True
+    assert ap.parse_args(["--no-autotune"]).autotune is False
     assert sorted(PROFILES) == ["homogeneous", "paper", "straggler"]
 
 
@@ -608,6 +616,31 @@ def test_stream_cli_smoke_prints_the_reference_smoke(capsys):
 
     def comparable(text):
         # the summaries' refresh latency and wall time the host's clocks
+        text = re.sub(r"refresh-to-visible [0-9.]+ms", "", text)
+        return re.sub(r"wall [0-9.]+s", "", text).splitlines()
+    assert comparable(out.stdout) == comparable(ref_out)
+
+
+def test_stream_cli_smoke_takes_costmodel_without_autotune(capsys):
+    """``--policy costmodel --no-autotune`` is accepted; the smoke still
+    gates the static and the dynamic policy, as the reference's does, and
+    prints what the reference's smoke prints with the same flags."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.stream", "--smoke",
+         "--device", "cpu", "--policy", "costmodel", "--no-autotune"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    ok = [ln for ln in out.stdout.splitlines() if "smoke OK" in ln]
+    assert len(ok) == 2
+    assert "(policy=static)" in ok[0] and "(policy=dynamic)" in ok[1]
+
+    from repro.launch.stream import stream as ref_stream
+    ref_stream(smoke=True, data_plane="ref", policy="costmodel",
+               autotune=False)
+    ref_out = capsys.readouterr().out
+
+    def comparable(text):
         text = re.sub(r"refresh-to-visible [0-9.]+ms", "", text)
         return re.sub(r"wall [0-9.]+s", "", text).splitlines()
     assert comparable(out.stdout) == comparable(ref_out)

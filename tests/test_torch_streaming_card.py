@@ -55,7 +55,7 @@ def test_stream_on_the_card_equals_the_cpu(card, variant):
                                                  seed=0)),
                    stationary_baskets(1024, n_items, seed=1)])
     kw = dict(window=512, batch_size=64, min_support=0.05, n_tiles=4)
-    tuning = None if variant == "packed" else {"variant": variant}
+    tuning = {"variant": variant}
     wrapper = {"packed": fused.support_count_packed,
                "mxu": kernel.support_count_int8}[variant]
     cpu = StreamingMiner(n_items, config=StreamingConfig(device="cpu", **kw))
