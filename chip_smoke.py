@@ -168,7 +168,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``costmodel`` (phase 6's recommendations); print ``select_algorithm``'s
     choice and priced seconds on the dense, B11's and the retail-scale
     corpus under the autotune-fed and the roofline-only model;
-13. print the card's name and power limit, the ``kernels`` JSON line and,
+13. the sharded plane on the dense corpus: (a) one NCCL rank in this
+    process (a file-store group): both support-count kernels held exactly
+    against their plain versions at the slabs one rank and the 4-rank
+    layout give them ([100,000 and 50,000 × 1,024] against M 2,176, 256
+    and 128) and timed there beside the launch floor and the bound;
+    ``ShardedMiner`` on ``packed``, ``mxu`` and ``ref`` (phase 3's
+    supports and rules, one d2h and one launch of the path's kernel a
+    counting round, no other kernel, equal reports walls aside), then
+    Eclat (phase 3's answer, no kernel); (b) four gloo ranks spawned on
+    the same card (one card takes one NCCL rank), ``mesh_profile(4)``:
+    the packed mine with ``device_loss`` of rank 3 at k=2 (phase 3's
+    answer on every rank, rows 10,000 / 15,000 / 25,000 / 50,000 then
+    20,000 / 30,000 / 50,000 / 0, one re-plan of 4,375 switches and 6,250
+    re-issues), then ``SONMiner(mesh=...)`` in phase 7's partitions with
+    a device loss in partition 1 (phase 3's answer); every wall printed
+    beside phase 3's;
+14. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -261,6 +277,17 @@ STREAM_WINDOW = 20_000
 STREAM_BATCH = 1_000
 STREAM_N_TILES = 8
 STREAM_DELTA_N = (1, 5, 8, 1000, 1024)
+# the sharded plane (phase 13): the 4-rank layout's profile is
+# mesh_profile(4) = 80/120/200/400, and its device loss (rank 3 at k = 2)
+# moves the dense corpus's row blocks as the reference's count_moves
+# gives on these plans (row blocks of 8)
+SHARDED_RANKS = 4
+SHARDED_ROWS = ((10_000, 15_000, 25_000, 50_000),      # before the fault
+                (20_000, 30_000, 50_000, 0))           # after it
+SHARDED_MOVES = (4375, 6250)                           # switches, re-issued
+# the slab rows one rank and the 4-rank layout give each support-count
+# launch
+SHARDED_SLAB_ROWS = (100_000, 50_000)
 # clocks the card spins before each timed loop, so that every timed launch
 # is queued before the first one starts (about 25 ms at 1,980 MHz)
 QUEUE_SLEEP_CYCLES = 50_000_000
@@ -1734,6 +1761,296 @@ def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     return row
 
 
+def _sharded_rank(rank: int, out: str, corpus: str, workdir: str,
+                  device: str) -> None:
+    """Phase 13b's rank ``rank`` (run by ``spawn_ranks``): the packed mine
+    with a device loss and SON over the mesh, written to
+    ``<out>/rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.fault import FaultEvent, FaultPlan
+    from repro_torch.distributed.mining import ShardedMiner, make_shard_mesh
+    from repro_torch.kernels.support_count import fused, kernel
+    from repro_torch.mining import SONConfig, SONMiner
+    from repro_torch.pipeline import PipelineConfig
+
+    if device == "cuda":
+        torch.cuda.set_device(0)             # every rank shares the card
+    T_all = np.load(corpus)
+    mesh = make_shard_mesh()
+    cfg = PipelineConfig(min_support=MIN_SUPPORT, n_tiles=N_TILES,
+                         tuning=PACKED, device=device)
+
+    def counted(fn):
+        fused.support_count_packed.launches = 0
+        kernel.support_count_int8.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, {"packed": fused.support_count_packed.launches,
+                     "int8": kernel.support_count_int8.launches,
+                     "wall_s": time.perf_counter() - t0}
+
+    def answer(res):
+        return {"supports": sorted([list(k), v]
+                                   for k, v in res.supports.items()),
+                "rules": [dataclasses.astuple(r) for r in res.rules]}
+
+    mined, on = counted(lambda: ShardedMiner(mesh=mesh, config=cfg).run(
+        T_all, FaultPlan([FaultEvent(2, "device_loss", 3)])))
+    rep = mined.report
+    r2 = [r for r in rep.rounds if r.k == 2][0]
+    maps = rep.ledger.by_kind("map")
+    son, son_on = counted(lambda: SONMiner(
+        config=cfg, mesh=mesh, son=SONConfig(
+            workdir=workdir, partition_rows=SON_PARTITION_ROWS)).run(
+        T_all, {1: FaultPlan([FaultEvent(2, "device_loss", 1)])}))
+    Path(out, f"rank{rank}.json").write_text(json.dumps({
+        "mine": dict(answer(mined), launches=on,
+                     rows_before=[8 * b for b in rep.rounds[0]
+                                  .tiles_per_device],
+                     rows_after=rep.shard_rows, replans=rep.replans,
+                     moves=[r2.switches, r2.reissued],
+                     failed=r2.failed_devices,
+                     counting_rounds=sum(1 for r in rep.rounds
+                                         if r.m_padded),
+                     syncs=[p.syncs for p in maps]),
+        "son": dict(answer(son), launches=son_on, replans=son.report.replans,
+                    partitions=son.report.n_partitions)}))
+
+
+def sharded_phase(torch, np, dev, T_all, packed, walls, floor_ms,
+                  zero_counts, read_counts, backend="nccl",
+                  slab_rows=SHARDED_SLAB_ROWS) -> dict:
+    """Phase 13: the sharded plane on the card.
+
+    a) One NCCL rank in this process (a file-store group, destroyed
+       afterwards; ``backend`` is ``gloo`` only where this is rehearsed on
+       the CPU): both support-count kernels held exactly against their
+       plain versions at the slabs ``slab_rows`` of the dense corpus
+       against phase 3's k=2 candidates (M 2,176, 256, 128) and timed
+       there; ``ShardedMiner`` on ``packed``, ``mxu`` and ``ref``, each
+       giving phase 3's supports and rules, one d2h and one launch of its
+       kernel a counting round, and equal reports walls aside; then Eclat
+       (no kernel).
+    b) ``SHARDED_RANKS`` gloo ranks spawned on the same card (one card
+       takes one NCCL rank, so ranks that share it reduce through gloo),
+       each holding the corpus (saved once, loaded by each): the packed
+       mine with ``device_loss`` of rank 3 at k=2, giving phase 3's answer
+       on every rank, ``SHARDED_ROWS`` before and after and one re-plan
+       of ``SHARDED_MOVES``; then SON over the mesh in phase 7's
+       partitions with a device loss in partition 1.
+
+    Returns the kernels' launches on 13a's paths, the slab timings and
+    the walls."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.itemsets import (generate_candidates,
+                                           itemsets_to_bitmap)
+    from repro_torch.distributed.mining import ShardedMiner, make_shard_mesh
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.kernels.support_count import fused, kernel
+    from repro_torch.launch.roofline import B1_OPS, HBM_BW, INT8_OPS
+    from repro_torch.pipeline import PipelineConfig, ingest_baskets
+    from repro_torch.pipeline.dataplane import pad_candidates
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {"walls": {}}
+    # phase 3's answer as the ranks write theirs: through JSON
+    want = json.loads(json.dumps({
+        "supports": sorted([list(k), v] for k, v in packed.supports.items()),
+        "rules": [dataclasses.astuple(r) for r in packed.rules]}))
+
+    # ---- a. one rank ----------------------------------------------------
+    print(f"phase 13a: one {backend} rank in this process")
+    with tempfile.TemporaryDirectory() as wd:
+        dist.init_process_group(backend, init_method=f"file://{wd}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_shard_mesh()
+            # the group's first collective sets up its communicator: done
+            # here, so that no mine's wall holds it
+            t0 = time.perf_counter()
+            dist.barrier(group=mesh.get_group(0))
+            sync()
+            out["walls"]["1 rank group set-up"] = time.perf_counter() - t0
+            print(f"{backend} group set-up (first collective): "
+                  f"{out['walls']['1 rank group set-up']:.3f} s")
+
+            # the kernels at the slab shapes: phase 3's bitmap against its
+            # k = 2 candidates (the first M of them at the later rounds')
+            T, _, n_tx = ingest_baskets(T_all)
+            counts = T.sum(axis=0, dtype=np.int64)
+            min_sup = max(1, int(MIN_SUPPORT * n_tx))
+            cands = generate_candidates(
+                [(int(i),) for i in np.flatnonzero(counts >= min_sup)])
+            C = torch.from_numpy(pad_candidates(
+                itemsets_to_bitmap(cands, T.shape[1]), 128)).to(dev)
+            Cw, Ci = fused.pack_words(C), C.view(torch.int8)
+            sizes = C.sum(dim=1, dtype=torch.int32)
+            I = T.shape[1]
+            W = I // 32
+            out["slabs"] = {}
+            for n in slab_rows:
+                # the 4-rank layout's slabs are 50,000 rows wide: the
+                # fastest rank's, all real rows
+                slab = torch.from_numpy(T[n_tx - n:]).to(dev)
+                Tw, Ti = fused.pack_words(slab), slab.view(torch.int8)
+                for m in ROUND_M:
+                    for key, fn, plain, args in (
+                            ("packed", fused.support_count_packed,
+                             fused.support_count_packed_plain,
+                             (Tw, Cw[:m], sizes[:m])),
+                            ("int8", kernel.support_count_int8,
+                             kernel.support_count_int8_plain,
+                             (Ti, Ci[:m], sizes[:m]))):
+                        got, ref = fn(*args), plain(*args)
+                        sync()
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"{key} at the slab [{n}, {m}] differs from "
+                                f"its plain version in "
+                                f"{int((got != ref).sum())} counts")
+                        bnd = ({"operations": n * m * W * 32 / B1_OPS,
+                                "bytes": (n * W * 4 + m * W * 4 + 2 * m * 4)
+                                / HBM_BW} if key == "packed" else
+                               {"operations": 2 * n * m * I / INT8_OPS,
+                                "bytes": (n * I + m * I + 2 * m * 4)
+                                / HBM_BW})
+                        by = max(bnd, key=bnd.get)
+                        ms = (_cuda_ms(torch, lambda: fn(*args))
+                              if dev.type == "cuda" else None)
+                        out["slabs"].setdefault(key, {})[f"{n}x{m}"] = dict(
+                            ms=ms, bound_ms=bnd[by] * 1e3, bound_by=by)
+                        if ms is not None:
+                            print(f"{key} at the slab [{n}, {m}]: kernel "
+                                  f"{ms:.4f} ms ({ms / floor_ms:.1f}x the "
+                                  f"launch floor), bound "
+                                  f"{bnd[by] * 1e3:.5f} ms ({by})")
+                del slab, Tw, Ti
+            print("both support-count kernels match their plain versions "
+                  f"exactly at the slabs {list(slab_rows)} x M {ROUND_M}")
+
+            # the three kernel paths and Eclat
+            reports, launches = {}, {}
+            for label, kw in (("packed", {"tuning": PACKED}),
+                              ("mxu", {"tuning": {"variant": "mxu"}}),
+                              ("ref", {"data_plane": "ref"}),
+                              ("eclat", {"algorithm": "eclat",
+                                         "tuning": PACKED})):
+                miner = ShardedMiner(mesh=mesh, config=PipelineConfig(
+                    min_support=MIN_SUPPORT, n_tiles=N_TILES,
+                    device=dev.type, **kw))
+                zero_counts()
+                t0 = time.perf_counter()
+                res = miner.run(T_all)
+                sync()
+                wall = time.perf_counter() - t0
+                on = read_counts()
+                rep = res.report
+                maps = rep.ledger.by_kind("map")
+                counting = sum(1 for r in rep.rounds if r.m_padded)
+                out["walls"][f"1 rank {label}"] = wall
+                # the in-core mine of the same path (phase 3; phase 4 for
+                # Eclat on the intersect kernel)
+                in_core = walls.get("eclat cuda" if label == "eclat"
+                                    else "apriori " + label, float("nan"))
+                print(f"sharded 1 rank {label}: {len(rep.rounds)} rounds, "
+                      f"{counting} counting rounds, syncs "
+                      f"{[p.syncs for p in maps]}, wall {wall:.3f} s "
+                      f"(in core {in_core:.3f} s); launches {on}")
+                if res.supports != packed.supports or \
+                        res.rules != packed.rules:
+                    raise AssertionError(f"sharded {label} differs from "
+                                         "phase 3's mine")
+                if any(p.syncs != 1 for p in maps):
+                    raise AssertionError(f"sharded {label}: one d2h a "
+                                         "counting round")
+                kern = {"packed": "packed", "mxu": "int8"}.get(label)
+                if any(v for k, v in on.items() if k != kern) or (
+                        kern and on[kern] != counting):
+                    raise AssertionError(
+                        f"sharded {label} must launch its kernel once a "
+                        f"counting round ({counting}) and no other: {on}")
+                if kern:
+                    launches[kern] = on[kern]
+                if label != "eclat":
+                    reports[label] = dict(_without_walls(rep),
+                                          backend="cuda")
+            if not reports["packed"] == reports["mxu"] == reports["ref"]:
+                raise AssertionError("the sharded reports differ between "
+                                     "kernel paths")
+            host_profile("sharded 1 rank packed mine", ShardedMiner(
+                mesh=mesh, config=PipelineConfig(
+                    min_support=MIN_SUPPORT, tuning=PACKED,
+                    device=dev.type)).run, T_all)
+            out["launches"] = launches
+            print("sharded 1 rank: packed, mxu and ref give phase 3's "
+                  "answer with equal reports; Eclat too, launching no "
+                  "kernel")
+        finally:
+            dist.destroy_process_group()
+
+    # ---- b. ranks sharing the card -------------------------------------
+    ranks = SHARDED_RANKS
+    print(f"phase 13b: {ranks} gloo ranks sharing {dev.type}:0 (one card "
+          "takes one NCCL rank: ranks that share it reduce through gloo)")
+    with tempfile.TemporaryDirectory() as wd:
+        np.save(f"{wd}/corpus.npy", T_all)
+        t0 = time.perf_counter()
+        spawn_ranks(_sharded_rank, ranks,
+                    args=(wd, f"{wd}/corpus.npy", f"{wd}/son", dev.type),
+                    store=f"{wd}/store", timeout_s=600)
+        out["walls"][f"{ranks} ranks, spawn to exit"] = (time.perf_counter()
+                                                         - t0)
+        got = [json.loads(Path(wd, f"rank{r}.json").read_text())
+               for r in range(ranks)]
+    for r, g in enumerate(got):
+        mine, son = g["mine"], g["son"]
+        print(f"rank {r}: mine wall {mine['launches']['wall_s']:.3f} s "
+              f"(in core {walls.get('apriori packed', float('nan')):.3f} "
+              "s), "
+              f"rows {mine['rows_before']} -> {mine['rows_after']}, "
+              f"{mine['replans']} re-plan, k=2 switches/re-issued "
+              f"{mine['moves']}, launches {mine['launches']}; SON wall "
+              f"{son['launches']['wall_s']:.3f} s, {son['partitions']} "
+              f"partitions, {son['replans']} re-plans, launches "
+              f"{son['launches']}")
+        if {k: mine[k] for k in want} != want:
+            raise AssertionError(f"rank {r}'s sharded mine differs from "
+                                 "phase 3's")
+        if {k: son[k] for k in want} != want:
+            raise AssertionError(f"rank {r}'s SON mine differs from "
+                                 "phase 3's")
+        if (tuple(mine["rows_before"]) != SHARDED_ROWS[0]
+                or tuple(mine["rows_after"]) != SHARDED_ROWS[1]
+                or mine["replans"] != 1 or mine["failed"] != [3]
+                or tuple(mine["moves"]) != SHARDED_MOVES):
+            raise AssertionError(f"rank {r}'s re-plan: {mine}")
+        if (set(mine["syncs"]) != {1}
+                or mine["launches"]["packed"] != mine["counting_rounds"]
+                or mine["launches"]["int8"]
+                or son["launches"]["packed"] <= 0
+                or son["launches"]["int8"] or son["replans"] < 1):
+            raise AssertionError(f"rank {r}'s syncs or launches: {g}")
+        out["walls"][f"rank {r} mine"] = mine["launches"]["wall_s"]
+        out["walls"][f"rank {r} son"] = son["launches"]["wall_s"]
+    print(f"{ranks} ranks: phase 3's answer on every rank, rows "
+          f"{list(SHARDED_ROWS[0])} -> {list(SHARDED_ROWS[1])}, "
+          f"{SHARDED_MOVES[0]} switches and {SHARDED_MOVES[1]} re-issues; "
+          "SON over the mesh gives phase 3's answer")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2583,7 +2900,13 @@ def main() -> int:
     print(f"autotune on {_nvidia_smi('name,power.limit')}: "
           + json.dumps(tuned))
 
-    # ---- 13. result lines ---------------------------------------------
+    # ---- 13. the sharded plane ----------------------------------------
+    sharded = sharded_phase(torch, np, dev, T_all, packed, walls, floor_ms,
+                            zero_counts, read_counts)
+    print(f"sharded on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps(sharded["walls"]))
+
+    # ---- 14. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -2617,6 +2940,9 @@ def main() -> int:
             rows[-1]["launch_floor_ms"] = floor_ms
         if key in son_launches:
             rows[-1]["son_launches"] = son_launches[key]
+        if key in sharded["launches"]:
+            rows[-1]["sharded_launches"] = sharded["launches"][key]
+            rows[-1]["sharded_slabs"] = sharded["slabs"][key]
         if key in stream["launches"]:
             rows[-1]["stream_launches"] = stream["launches"][key]
             rows[-1]["stream_delta"] = [

@@ -1,12 +1,16 @@
-"""MapReduce engine — Hadoop semantics over a simulated heterogeneous
-cluster.
+"""MapReduce engine — Hadoop semantics, executed or simulated.
 
-:class:`SimulatedCluster` is a deterministic event simulation over a
-:class:`HeterogeneityProfile` (the paper's 4-core system, a straggler-laden
-pod, ...).  It computes the *real* result (every tile mapped exactly once,
-combined associatively) and a timing/energy report under the MB Scheduler,
-including failures (tiles of a dead device re-planned — "dynamic core
-switching") and speculative re-issue.
+Two runtimes share one :class:`MapReduceJob` definition:
+
+* :class:`SimulatedCluster` — deterministic event simulation over a
+  :class:`HeterogeneityProfile` (the paper's 4-core system, a
+  straggler-laden pod, ...).  It computes the *real* result (every tile
+  mapped exactly once, combined associatively) and a timing/energy report
+  under the MB Scheduler, including failures (tiles of a dead device
+  re-planned — "dynamic core switching") and speculative re-issue.
+* :func:`run_sharded` — SPMD execution over a ``torch.distributed`` device
+  mesh, one process a rank: each rank maps its own shard on its device and
+  the partial results reduce with ``all_reduce(SUM)`` over the mesh axis.
 
 ``tile_cost`` prices a tile by its ``nbytes``: the pipeline's tiles are
 ``uint8`` tensors, so their planned costs (and with them every ledger
@@ -14,10 +18,12 @@ time and joule) equal the numpy bitmap's.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.hetero import HeterogeneityProfile
 from repro_torch.core.power import PowerModel
@@ -182,3 +188,62 @@ class SimulatedCluster:
                           switches=switches,
                           reissued=reissued, failed_devices=dead,
                           tiles_done=done_by)
+
+
+# ---------------------------------------------------------------------------
+# Real distributed execution: one process a rank, all_reduce combiner
+# ---------------------------------------------------------------------------
+
+def run_sharded(job: MapReduceJob, data: torch.Tensor, mesh,
+                axis: str = "data", *,
+                extra_args: Tuple[Any, ...] = (),
+                profile: Optional[HeterogeneityProfile] = None,
+                shard_costs: Optional[np.ndarray] = None,
+                ) -> Tuple[torch.Tensor, ExecReport]:
+    """Map this rank's shard and sum the result over the mesh axis.
+    Returns ``(result, ExecReport)`` like ``SimulatedCluster.run`` so
+    simulated and sharded executions are report-comparable.
+
+    SPMD: every rank of ``mesh`` (a ``torch.distributed`` ``DeviceMesh``)
+    calls this with its *own* shard ``data`` (the reference takes the
+    global array and splits it); ``job.map_fn(data, *extra_args)`` runs on
+    the shard's device and must return one tensor whose shape does not
+    depend on the shard, which ``all_reduce(SUM)`` over
+    ``mesh.get_group(axis)`` turns into the whole result on every rank.
+    ``extra_args`` are the same on every rank (e.g. a candidate bitmap).
+    Every rank must call this for every job in the same order: a rank that
+    skips a collective hangs the others.
+
+    Timing: with a `profile` (and per-rank `shard_costs` in the same work
+    units the scheduler uses — defaults to one shard's ``data.nbytes`` per
+    rank, the shards being equal), busy seconds are ``cost / speed`` per
+    rank; without a profile the report carries this rank's measured wall
+    only, taken after the device has finished.  Energy and switch pricing
+    live in ``repro_torch.runtime.Runtime.run_phase`` — the one place every
+    plane's accounting happens — not here.
+    """
+    import torch.distributed as dist
+
+    n_shards = mesh.size(mesh.mesh_dim_names.index(axis))
+    t0 = time.perf_counter()
+    result = job.map_fn(data, *extra_args).contiguous()
+    dist.all_reduce(result, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
+    if result.is_cuda:
+        torch.cuda.synchronize(result.device)
+    wall_s = time.perf_counter() - t0
+
+    if profile is not None:
+        if profile.n != n_shards:
+            raise ValueError(f"profile has {profile.n} ranks but mesh axis "
+                             f"{axis!r} has {n_shards}")
+        if shard_costs is None:
+            shard_costs = np.full(n_shards, float(data.nbytes))
+        shard_costs = np.asarray(shard_costs, dtype=np.float64)
+        busy = shard_costs / profile.speeds
+        makespan = float(busy.max()) if len(busy) else 0.0
+        rep = ExecReport(makespan=makespan, busy_s=busy,
+                         tiles_done=[int(c > 0) for c in shard_costs])
+    else:
+        rep = ExecReport(makespan=wall_s, busy_s=np.zeros(n_shards),
+                         tiles_done=[1] * n_shards)
+    return result, rep

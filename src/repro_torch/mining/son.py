@@ -10,8 +10,9 @@ answer from the Singh et al. MapReduce-frequent-itemset survey (arXiv
                    ``partition_rows`` transactions (checkpoint/store is the
                    spill format — one step per partition);
   pass 1 (local):  mine each chunk independently through the existing
-                   MiningBackend planes (MarketBasketPipeline / EclatMiner)
-                   at the scaled threshold ``floor(G * p_rows / n_tx)``; the
+                   MiningBackend planes (MarketBasketPipeline / EclatMiner,
+                   or a per-partition ShardedMiner when a mesh is given) at
+                   the scaled threshold ``floor(G * p_rows / n_tx)``; the
                    union of local winners is a superset of the global
                    frequent set (no false negatives — see
                    :func:`repro_torch.mining.select.local_min_support`);
@@ -33,15 +34,23 @@ candidate order is *recomputed* canonically (sorted by level, then
 lexicographically) rather than stored, so a resumed pass 2 indexes its
 counts identically by construction.  The workdir layout, the checkpoints
 and the corpus fingerprint are the reference package's, so a mine spilled
-or killed under one package resumes under the other.
+or killed under one package resumes under the other.  ``FaultPlan``
+events routed to a partition trigger the sharded plane's shard re-plan
+inside that partition's local pass.
+
+With a ``mesh`` the miner runs SPMD like the sharded plane it drives:
+every rank of the mesh calls :meth:`SONMiner.run` with the same arguments.
+Only the mesh's rank 0 writes the workdir (the spill, ``corpus.json`` and
+the checkpoints); the other ranks wait at a barrier on the mesh's group
+before they read it, every rank reads rank 0's checkpoint on resume, a
+kill (``abort_after``) raises :class:`SONKilled` on every rank at the same
+boundary, and pass 2 re-counts on every rank's own device, as the
+single-device plane does; every rank returns rank 0's result.
 
 All phases — spill writes, chunk loads, local-pass sub-phases (absorbed
 with a ``son-p<i>/`` prefix), re-count map rounds, checkpoint writes, rule
 extraction — are priced through the shared :class:`repro_torch.runtime.Runtime`
 ledger like every other plane.
-
-The sharded local pass (a ``mesh``) is not ported: it needs the sharded
-plane (ROADMAP item 4).
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import store
 from repro_torch.core.hetero import HeterogeneityProfile
@@ -151,9 +161,12 @@ class SONMiner:
     protocol — same ``run(baskets, faults)`` shape, same
     :class:`PipelineResult`, bit-identical supports and rules.
 
-    ``faults`` maps partition index → the ``failures`` list of that
-    partition's local plane (simulated core failures re-plan *inside* the
-    partition).  Counting runs on ``config.device``: the card by default.
+    ``faults`` maps partition index → the fault argument of the local plane
+    (a :class:`repro_torch.distributed.fault.FaultPlan` when a ``mesh``
+    makes the local pass sharded, a list of :class:`FailureEvent` for the
+    simulated planes) — device loss mid-partition re-plans *inside* that
+    partition, surfaced as ``report.replans``.  Counting runs on
+    ``config.device``: the card by default.
     """
 
     def __init__(self, profile: Optional[HeterogeneityProfile] = None,
@@ -162,14 +175,10 @@ class SONMiner:
                  scheduler: Optional[MBScheduler] = None,
                  power: Optional[PowerModel] = None,
                  policy: "SwitchingPolicy | str | None" = None,
-                 mesh=None):
+                 mesh=None, row_block: int = 8):
         if son is None:
             raise ValueError("SONMiner requires a SONConfig (workdir, "
                              "partition_rows)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "SON's sharded local pass (mesh=...) is not ported yet: it "
-                "needs the sharded mining plane, ROADMAP item 4")
         self.son = son
         self.profile = profile or HeterogeneityProfile.paper()
         self.config = config or PipelineConfig()
@@ -193,6 +202,10 @@ class SONMiner:
                                                         cfg.autotune),
                                     meter=self.runtime.meter)
         self.slabs = SlabPool(self.runtime.meter.device)
+        self.mesh = mesh
+        self.row_block = row_block
+        # the one process that writes the workdir: the mesh's rank 0
+        self._writes = mesh is None or dist.get_rank(mesh.get_group(0)) == 0
         self.algorithm_choice: Optional[AlgorithmChoice] = None
         # local-pass backends keyed by (rows, local_abs_support): at most
         # two distinct keys per corpus (full + ragged last partition), so
@@ -227,9 +240,17 @@ class SONMiner:
             ms = float(local_abs) if local_abs > 1 else 0.0
             lcfg = dataclasses.replace(self.config, algorithm=algorithm,
                                        min_support=ms)
-            from repro_torch.mining.backend import make_miner
-            backend, _ = make_miner(None, profile=self.profile, config=lcfg,
-                                    policy=self._policy_arg)
+            if self.mesh is not None:
+                from repro_torch.distributed.mining import partition_miner
+                backend = partition_miner(mesh=self.mesh, config=lcfg,
+                                          base_profile=self.profile,
+                                          policy=self._policy_arg,
+                                          row_block=self.row_block)
+            else:
+                from repro_torch.mining.backend import make_miner
+                backend, _ = make_miner(None, profile=self.profile,
+                                        config=lcfg,
+                                        policy=self._policy_arg)
             self._locals[key] = backend
         return backend
 
@@ -255,7 +276,7 @@ class SONMiner:
                        codec=self.son.codec)
 
         self.runtime.run_serial(f"son-spill-p{p}", cost=float(max(1, nbytes)),
-                                fn=write)
+                                fn=write if self._writes else None)
 
     def _load_partition(self, p: int, cost_est: float) -> SparseSlab:
         def load():
@@ -290,12 +311,18 @@ class SONMiner:
                        codec=self.son.codec, keep_last=self.son.keep_last)
 
         self.runtime.run_serial(f"son-ckpt-b{boundary}",
-                                cost=float(max(1, nbytes)), fn=write)
+                                cost=float(max(1, nbytes)),
+                                fn=write if self._writes else None)
         report.checkpoint_saves += 1
         report.checkpoint_bytes += nbytes
         if (self.son.abort_after is not None
                 and boundary >= self.son.abort_after):
             raise SONKilled(boundary)
+
+    def _barrier(self) -> None:
+        """With a mesh: wait until every rank of it gets here."""
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.get_group(0))
 
     def _restore_state(self, P: int, fingerprint: str):
         """(pass1_done, pass2_done, union, counts, boundary, algorithm) from
@@ -420,25 +447,32 @@ class SONMiner:
                     f"{meta.get('fingerprint')} != {fingerprint} — the "
                     "workdir holds a different job")
         else:
-            os.makedirs(son.workdir, exist_ok=True)
-            for d in (self._spill_dir, self._state_dir):
-                if os.path.exists(d):
-                    shutil.rmtree(d)
-            if os.path.exists(self._meta_path):
-                os.remove(self._meta_path)
+            if self._writes:
+                os.makedirs(son.workdir, exist_ok=True)
+                for d in (self._spill_dir, self._state_dir):
+                    if os.path.exists(d):
+                        shutil.rmtree(d)
+                if os.path.exists(self._meta_path):
+                    os.remove(self._meta_path)
             for p, (lo, hi) in enumerate(parts):
                 self._spill_partition(p, _slice_slab(baskets, lo, hi,
                                                      n_items))
             # written only once every chunk is durable: its presence is the
             # resume path's spill-complete marker
-            with open(self._meta_path, "w") as f:
-                json.dump({"fingerprint": fingerprint, "n_partitions": P,
-                           "partition_rows": son.partition_rows,
-                           "algorithm": algorithm}, f)
+            if self._writes:
+                with open(self._meta_path, "w") as f:
+                    json.dump({"fingerprint": fingerprint, "n_partitions": P,
+                               "partition_rows": son.partition_rows,
+                               "algorithm": algorithm}, f)
 
         # ---- restore (or initialize) the boundary state ----------------
+        # with a mesh, every rank reads what rank 0 spilled and
+        # checkpointed, and rank 0 writes its next checkpoint only once
+        # every rank has read the last one
+        self._barrier()
         p1, p2, union, counts, boundary, ckpt_algo = self._restore_state(
             P, fingerprint)
+        self._barrier()
         if ckpt_algo is not None:
             algorithm = ckpt_algo    # a resumed auto decision never flips
         resumed = int(p1.sum() + p2.sum()) if son.resume else 0

@@ -145,8 +145,9 @@ def gqa_forward(p: Params, cfg, x: torch.Tensor, window: int,
                 positions=None) -> torch.Tensor:
     if cfg.sequence_parallel:
         raise NotImplementedError(
-            "sequence_parallel shards a mesh axis; the sharded plane is "
-            "ROADMAP item 4")
+            "sequence_parallel shards a mesh axis; the meshes and "
+            "collectives it needs (distributed/meshes.py) are ROADMAP "
+            "item 6.5")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]

@@ -88,6 +88,12 @@ class TransferMeter:
         self.syncs += 1
         return out
 
+    def charge_h2d(self, nbytes: int) -> None:
+        """Count ``nbytes`` of uploads made by other processes of one
+        plane: a sharded rank uploads only its own slab but charges every
+        rank's, so its ledger reads the bytes the whole mesh moved."""
+        self.h2d_bytes += int(nbytes)
+
     # ------------------------------------------------------------------
     def stats(self) -> TransferStats:
         return TransferStats(self.h2d_bytes, self.d2h_bytes, self.syncs)

@@ -59,6 +59,29 @@ with tempfile.TemporaryDirectory() as wd:
     index.save(wd + "/index")
     assert RuleIndex.load(wd + "/index").same_arrays(index)
     print("SON", mined.report.n_partitions, mined.report.checkpoint_saves)
+import datetime
+import torch.distributed as dist
+from repro_torch.distributed.fault import FaultEvent, FaultPlan
+from repro_torch.distributed.mining import ShardedMiner, make_shard_mesh
+from repro_torch.mining import SONMiner
+with tempfile.TemporaryDirectory() as wd:
+    dist.init_process_group("gloo", init_method=f"file://{wd}/store", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_shard_mesh()
+        cfg = PipelineConfig(min_support=0.05, n_tiles=4, device="cpu")
+        sharded = ShardedMiner(mesh=mesh, config=cfg).run(
+            T, FaultPlan([FaultEvent(2, "straggler", 0, 2.0)]))
+        assert sharded.supports == res.supports
+        assert sharded.rules == res.rules
+        son = SONMiner(config=cfg, mesh=mesh, son=SONConfig(
+            workdir=wd + "/son", partition_rows=100)).run(T)
+        assert son.supports == res.supports and son.rules == res.rules
+        print("SHARDED", sharded.report.n_shards, sharded.report.replans,
+              son.report.n_partitions)
+    finally:
+        dist.destroy_process_group()
 from repro_torch.data.baskets import stationary_baskets
 from repro_torch.launch.stream import stream
 from repro_torch.streaming import (StreamingConfig, StreamingMiner,
@@ -132,6 +155,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "HYBRID (2, 512)" in out.stdout
     assert "RWKV (2, 512)" in out.stdout
     assert "SON 3 6" in out.stdout
+    assert "SHARDED 1 1 3" in out.stdout
     assert "STREAM 6 ref True" in out.stdout
     assert "STREAM CLI 128" in out.stdout
     assert "AUTOTUNE 3 ['roofline']" in out.stdout
@@ -146,11 +170,13 @@ def test_no_source_imports_jax_or_reference():
     assert len(files) > 20
     for part in ("models", "configs", "launch", "kernels/flash_attention",
                  "kernels/selective_scan", "kernels/rwkv6_wkv", "checkpoint",
-                 "mining", "streaming", "kernels/autotune"):
+                 "mining", "streaming", "kernels/autotune", "distributed"):
         assert PORT / part / "__init__.py" in files
     for module in ("checkpoint/store.py", "mining/son.py",
                    "streaming/source.py", "streaming/miner.py",
-                   "launch/common.py", "launch/stream.py"):
+                   "launch/common.py", "launch/stream.py",
+                   "data/sharding.py", "distributed/fault.py",
+                   "distributed/mining.py", "distributed/ranks.py"):
         assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  + _NO_MSGPACK.findall(f.read_text()) for f in files}

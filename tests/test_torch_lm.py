@@ -339,5 +339,5 @@ def test_sequence_parallel_raises(carried32):
     _, cfg, _, params = carried32
     x = torch.zeros((1, 4, cfg.d_model))
     p = {k: v[0] for k, v in params["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6.5"):
         attention.gqa_forward(p, cfg.replace(sequence_parallel=True), x, 0)

@@ -1,8 +1,9 @@
 """The port's SON out-of-core plane, held against the reference's.
 
-Mirrors ``tests/test_son.py`` (bar its 8-rank sharded case, which needs the
-sharded plane): the same corpora (made with the same numpy code from the
-same seeds) go through ``repro.mining.SONMiner`` (data plane ``ref``) and
+Mirrors ``tests/test_son.py`` (bar its 8-rank sharded case, which
+``tests/test_torch_sharded.py`` runs on 8 gloo ranks): the same corpora
+(made with the same numpy code from the same seeds) go through
+``repro.mining.SONMiner`` (data plane ``ref``) and
 ``repro_torch.mining.SONMiner`` on the CPU.  Supports, rules, report counts
 and every ledger field but the host wall time must be equal — phase names,
 syncs and bytes included — and both must equal the single-shot pipeline.
@@ -366,15 +367,11 @@ def test_resume_without_spill_errors(tmp_path):
 # what is refused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", ["mesh", "no_son_config", "no_workdir",
+@pytest.mark.parametrize("case", ["no_son_config", "no_workdir",
                                   "zero_rows"])
 def test_refused(tmp_path, case):
     cpu = PipelineConfig(device="cpu")
-    son = SONConfig(workdir=str(tmp_path), partition_rows=ROWS)
-    if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            SONMiner(config=cpu, son=son, mesh=object())
-    elif case == "no_son_config":
+    if case == "no_son_config":
         with pytest.raises(ValueError, match="requires a SONConfig"):
             SONMiner(config=cpu)
     elif case == "no_workdir":
