@@ -184,7 +184,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     re-issues), then ``SONMiner(mesh=...)`` in phase 7's partitions with
     a device loss in partition 1 (phase 3's answer); every wall printed
     beside phase 3's;
-14. print the card's name and power limit, the ``kernels`` JSON line and,
+14. the user entry points at the dense corpus: (a) ``core.itemsets.
+    apriori`` on the support-count kernel the checked-in cache picks and
+    on the plain count (phase 3's supports, one launch a tile a counting
+    round on the kernel path and none on the plain one, one read back a
+    level); (b) ``launch.mine.mine`` in this process with the default
+    flags, ``auto``, ``eclat``, out of core in phase 7's partitions
+    (killed at boundary 2, exit code 3, then resumed), sharded on four
+    spawned gloo ranks sharing the card, and under ``profile_dir``, each
+    giving phase 3's supports and rules, with the device's busy share of
+    the traced mine read from its ``*.pt.trace.json``; (c)
+    ``launch.recommend.recommend`` with 4,096 queries, closed-loop and
+    async (unpaced) under ``static`` and ``dynamic`` (async equal to the
+    closed loop, the first 512 equal to ``recommend_bruteforce``,
+    rule-match launches), printing the rates; (d) the reference CI's
+    command lines for the port (``ci.yml:40, 118-128, 141-171``, and
+    ``--sharded`` through ``torchrun`` on one NCCL rank) as subprocesses
+    on the card, four at a time: each exits 0, ``--kill-after 3`` exits 3
+    and its ``--resume`` 0, and ``--profile-dir`` leaves a
+    ``*.pt.trace.json``; every wall printed;
+15. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -291,6 +310,49 @@ SHARDED_SLAB_ROWS = (100_000, 50_000)
 # clocks the card spins before each timed loop, so that every timed launch
 # is queued before the first one starts (about 25 ms at 1,980 MHz)
 QUEUE_SLEEP_CYCLES = 50_000_000
+# the CLIs (phase 14): the dense mine killed at this partition boundary and
+# resumed, and the spawned gloo ranks of the sharded mine
+CLI_KILL_AFTER = 2
+CLI_SHARDS = 4
+# the reference CI's commands (.github/workflows/ci.yml:40, 118-128,
+# 141-171) with repro replaced by repro_torch, as chains run in turn, each
+# command with the exit code it must give; "{tmp}" is a scratch directory
+CLI_MATRIX = {
+    "recommend --smoke": [(["recommend", "--smoke"], 0)],
+    "mine --sharded --smoke": [(["mine", "--sharded", "--smoke"], 0)],
+    "mine --sharded --smoke --policy dynamic": [
+        (["mine", "--sharded", "--smoke", "--policy", "dynamic"], 0)],
+    "mine --algorithm eclat --smoke": [
+        (["mine", "--algorithm", "eclat", "--smoke"], 0)],
+    "mine --algorithm eclat --smoke --policy dynamic": [
+        (["mine", "--algorithm", "eclat", "--smoke", "--policy",
+          "dynamic"], 0)],
+    "mine --algorithm auto --smoke": [
+        (["mine", "--algorithm", "auto", "--smoke"], 0)],
+    "mine --algorithm auto --sharded --smoke --policy dynamic": [
+        (["mine", "--algorithm", "auto", "--sharded", "--smoke", "--policy",
+          "dynamic"], 0)],
+    "mine --smoke --profile-dir": [
+        (["mine", "--smoke", "--profile-dir", "{tmp}/mine-trace"], 0)],
+    "recommend --async --smoke": [(["recommend", "--async", "--smoke"], 0)],
+    "mine --out-of-core --smoke": [
+        (["mine", "--out-of-core", "--smoke", "--son-dir",
+          "{tmp}/son-smoke"], 0)],
+    "mine --out-of-core --sharded --smoke --policy dynamic": [
+        (["mine", "--out-of-core", "--sharded", "--smoke", "--policy",
+          "dynamic", "--son-dir", "{tmp}/son-smoke-sharded"], 0)],
+    "mine --out-of-core --smoke --kill-after 3, then --resume": [
+        (["mine", "--out-of-core", "--smoke", "--son-dir", "{tmp}/son-kr",
+          "--kill-after", "3"], 3),
+        (["mine", "--out-of-core", "--smoke", "--son-dir", "{tmp}/son-kr",
+          "--resume"], 0)],
+    # not in the reference CI: the torchrun route of --sharded (one NCCL
+    # rank on the card)
+    "torchrun --nproc-per-node 1 mine --sharded --smoke": [
+        (["torchrun", "mine", "--sharded", "--smoke"], 0)],
+}
+CLI_PARALLEL = 4            # chains of the matrix running at once
+CLI_TIMEOUT_S = 300         # a command of the matrix
 
 
 def _nvidia_smi(query: str) -> str:
@@ -2051,6 +2113,327 @@ def sharded_phase(torch, np, dev, T_all, packed, walls, floor_ms,
     return out
 
 
+def trace_busy(path: str, window: str) -> dict:
+    """The device's busy share of a ``torch.profiler`` trace over the
+    ``window`` range: the union of kernel intervals (and of kernel, copy
+    and fill intervals) clipped to the range, over the range's length."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    ranges = [e for e in events if e.get("name") == window
+              and e.get("cat") == "user_annotation"]
+    if len(ranges) != 1:
+        raise AssertionError(f"the trace holds {len(ranges)} {window} "
+                             "ranges, not 1")
+    t0 = float(ranges[0]["ts"])
+    t1 = t0 + float(ranges[0]["dur"])
+
+    def union(cats):
+        spans = sorted((max(float(e["ts"]), t0),
+                        min(float(e["ts"]) + float(e["dur"]), t1))
+                       for e in events if e.get("cat") in cats
+                       and e.get("ph") == "X")
+        busy, end = 0.0, t0
+        for s, e in spans:
+            s = max(s, end)
+            if e > s:
+                busy += e - s
+                end = e
+        return busy
+
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            # "void (anonymous namespace)::name<...>(...)" -> "name"
+            name = e["name"].replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            by_name[name] = by_name.get(name, 0) + 1
+    return {"window_ms": (t1 - t0) / 1e3,
+            "kernel_share": union({"kernel"}) / (t1 - t0),
+            "device_share": union({"kernel", "gpu_memcpy",
+                                   "gpu_memset"}) / (t1 - t0),
+            "kernels": by_name}
+
+
+def _cli_matrix(root: Path, device: str) -> dict:
+    """Every chain of ``CLI_MATRIX`` as subprocesses, ``CLI_PARALLEL`` at
+    a time: name -> [wall s of each command].  Raises on an exit code
+    that is not the command's, and stops every process it started."""
+    import os
+    import signal
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def start(args):
+            if args[0] == "torchrun":
+                head = ["-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node", "1", "-m",
+                        f"repro_torch.launch.{args[1]}"]
+                args = args[1:]
+            else:
+                head = ["-m", f"repro_torch.launch.{args[0]}"]
+            # without --device the commands run on the card, as a user's
+            extra = [] if device == "cuda" else ["--device", device]
+            return subprocess.Popen(
+                [sys.executable, *head, *[a.format(tmp=tmp)
+                                          for a in args[1:]], *extra],
+                env=env, cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+        waiting = list(CLI_MATRIX.items())
+        running = {}
+        try:
+            while waiting or running:
+                while waiting and len(running) < CLI_PARALLEL:
+                    name, chain = waiting.pop(0)
+                    running[name] = (list(chain), start(chain[0][0]),
+                                     time.perf_counter())
+                    walls[name] = []
+                for name, (chain, proc, t0) in list(running.items()):
+                    if proc.poll() is None:
+                        if time.perf_counter() - t0 > CLI_TIMEOUT_S:
+                            raise AssertionError(f"{name}: no exit in "
+                                                 f"{CLI_TIMEOUT_S} s")
+                        continue
+                    out, err = proc.communicate()
+                    walls[name].append(time.perf_counter() - t0)
+                    args, want = chain.pop(0)
+                    if proc.returncode != want:
+                        raise AssertionError(
+                            f"{' '.join(args)} exited {proc.returncode}, "
+                            f"not {want}:\n{out[-1500:]}\n{err[-3000:]}")
+                    if "--profile-dir" in args and not list(
+                            Path(tmp, "mine-trace").glob("*.pt.trace.json")):
+                        raise AssertionError("--profile-dir left no "
+                                             "*.pt.trace.json")
+                    if chain:
+                        running[name] = (chain, start(chain[0][0]),
+                                         time.perf_counter())
+                    else:
+                        del running[name]
+                time.sleep(0.05)
+        finally:
+            for _, proc, _ in running.values():  # a command and its ranks
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+    return walls
+
+
+def cli_phase(torch, np, dev, T_all, packed, walls, zero_counts,
+              read_counts, corpus=CORPUS, partition_rows=SON_PARTITION_ROWS,
+              n_queries=N_QUERIES, n_oracle=N_ORACLE,
+              matrix=True) -> dict:
+    """Phase 14: the port's user entry points on the card, at the dense
+    corpus (``corpus``; phase 3's answer ``packed``).
+
+    a) ``apriori`` (the minimal driver) on the support-count kernel the
+       checked-in cache picks and on the plain count: phase 3's supports,
+       one launch a tile a counting round on the kernel path and none on
+       the plain one, one read back (``TransferMeter`` sync) a level.
+    b) ``launch.mine.mine`` in this process: the default flags, ``auto``,
+       ``eclat``, out of core (killed at boundary ``CLI_KILL_AFTER``, then
+       resumed), sharded on ``CLI_SHARDS`` spawned gloo ranks sharing the
+       card, and under ``profile_dir`` (the device's busy share of the
+       traced mine); each gives phase 3's supports and rules.
+    c) ``launch.recommend.recommend`` with ``n_queries`` queries,
+       closed-loop and async (unpaced) under ``static`` and ``dynamic``:
+       async equal to the closed loop, the first ``n_oracle`` equal to
+       ``recommend_bruteforce``, rule-match launches on the kernel path.
+    d) ``CLI_MATRIX`` as subprocesses (skipped when ``matrix`` is False).
+
+    Returns the walls, each kernel's launches in (a) and in each run of
+    (b) and (c), the trace's busy share and the serving rates."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.core.itemsets import apriori
+    from repro_torch.data.baskets import BasketConfig
+    from repro_torch.launch.mine import TRACE_RANGE, mine
+    from repro_torch.launch.recommend import recommend, synthetic_trace
+    from repro_torch.runtime import TransferMeter
+    from repro_torch.serving import recommend_bruteforce
+
+    device = dev.type
+    out = {"walls": {}, "apriori_launches": {}, "cli_launches": {}}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(label, fn):
+        """``fn()`` quietly, with counts zeroed just before and read just
+        after: its value, wall and launches (recorded under ``label``,
+        also where it raises)."""
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = fn()
+            sync()
+        finally:                      # a killed mine raises SystemExit
+            wall = time.perf_counter() - t0
+            on = read_counts()
+            out["walls"][label] = wall
+            for k, v in on.items():
+                if v and not label.startswith("apriori"):
+                    out["cli_launches"].setdefault(k, {})[label] = v
+        return res, wall, on
+
+    def same(res, what):
+        if res.supports != packed.supports or res.rules != packed.rules:
+            raise AssertionError(f"{what} differs from phase 3's mine")
+
+    in_core = ", ".join(f"{k} {walls[k]:.3f} s" for k in
+                        ("apriori packed", "apriori mxu", "apriori ref")
+                        if k in walls)
+
+    # ---- a. the minimal Apriori driver ---------------------------------
+    n_tx = T_all.shape[0]
+    min_abs = max(1, int(MIN_SUPPORT * n_tx))
+    for use_kernel in (True, False):
+        meter = TransferMeter(dev)
+        res, wall, on = timed(
+            f"apriori() use_kernel={use_kernel}", lambda: apriori(
+                T_all, min_abs, n_tiles=N_TILES, use_kernel=use_kernel,
+                device=device, meter=meter))
+        if res.supports != packed.supports:
+            raise AssertionError(f"apriori(use_kernel={use_kernel}) "
+                                 "differs from phase 3's supports")
+        counting = len(res.reports) - 1
+        launched = on["packed"] + on["int8"]
+        others = sum(v for k, v in on.items() if k not in ("packed", "int8"))
+        print(f"apriori(use_kernel={use_kernel}): {res.levels} levels, "
+              f"{counting} counting, {meter.syncs} reads back "
+              f"({meter.d2h_bytes} B), {meter.h2d_bytes} B uploaded, "
+              f"wall {wall:.3f} s (phase 3: {in_core}); launches {on}")
+        if meter.syncs != len(res.reports):
+            raise AssertionError("apriori must read back once a level")
+        if others or launched != (N_TILES * counting if use_kernel else 0):
+            raise AssertionError(
+                f"apriori(use_kernel={use_kernel}) must launch the cached "
+                f"support-count kernel once a tile a counting round "
+                f"({N_TILES} x {counting}) on the kernel path and nothing "
+                f"on the plain one: {on}")
+        if use_kernel:
+            out["apriori_launches"] = on
+
+    # ---- b. mine() in process ------------------------------------------
+    base = dict(n_tx=corpus["n_tx"], n_items=corpus["n_items"],
+                seed=corpus["seed"], min_support=MIN_SUPPORT,
+                n_tiles=N_TILES, top=0, device=device)
+    with tempfile.TemporaryDirectory() as wd:
+        for label, kw in (("mine default", {}),
+                          ("mine auto", {"algorithm": "auto"}),
+                          ("mine eclat", {"algorithm": "eclat"})):
+            res, wall, on = timed(label, lambda: mine(**base, **kw))
+            same(res, label)
+            print(f"{label}: {res.report.algorithm}, wall {wall:.3f} s "
+                  f"(corpus generation included); launches {on}")
+            if not any(on.values()):
+                raise AssertionError(f"{label} launched no kernel")
+        son = dict(base, out_of_core=True, partition_rows=partition_rows,
+                   son_dir=f"{wd}/son")
+        try:
+            timed("mine out-of-core killed",
+                  lambda: mine(**son, kill_after=CLI_KILL_AFTER))
+            raise AssertionError("the killed mine ran to its end")
+        except SystemExit as e:
+            if e.code != 3:
+                raise AssertionError(f"the killed mine exited {e.code}")
+        res, wall, on = timed("mine out-of-core resumed",
+                              lambda: mine(**son, resume=True))
+        same(res, "the resumed out-of-core mine")
+        if res.report.partitions_resumed != CLI_KILL_AFTER:
+            raise AssertionError(f"resumed {res.report.partitions_resumed} "
+                                 f"partitions, not {CLI_KILL_AFTER}")
+        print(f"mine out-of-core: killed at boundary {CLI_KILL_AFTER} "
+              f"(exit 3, {out['walls']['mine out-of-core killed']:.3f} s), "
+              f"resumed {res.report.partitions_resumed} partitions in "
+              f"{wall:.3f} s; launches {on}")
+        res, wall, _ = timed("mine sharded", lambda: mine(
+            **base, sharded=True, n_shards=CLI_SHARDS))
+        same(res, "the sharded mine")
+        print(f"mine sharded: {CLI_SHARDS} spawned gloo ranks on "
+              f"{device}, {res.report.n_shards} shards, spawn to exit "
+              f"{wall:.3f} s")
+        res, wall, on = timed("mine profiled", lambda: mine(
+            **base, profile_dir=f"{wd}/trace"))
+        same(res, "the profiled mine")
+        traces = list(Path(wd, "trace").glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile-dir left {len(traces)} traces")
+        busy = trace_busy(str(traces[0]), TRACE_RANGE)
+        out["trace"] = busy
+        print(f"mine profiled: wall {wall:.3f} s; trace "
+              f"{traces[0].stat().st_size / 1e6:.1f} MB, the mine's range "
+              f"{busy['window_ms']:.2f} ms, kernels busy "
+              f"{busy['kernel_share']:.4f} of it, kernels + copies + fills "
+              f"{busy['device_share']:.4f}; kernels {busy['kernels']}; "
+              f"launches {on}")
+        if device == "cuda" and busy["kernels"].get(
+                "support_count_kernel", 0) != on["packed"] + on["int8"]:
+            raise AssertionError("the trace must hold each support-count "
+                                 f"launch: {busy['kernels']}, {on}")
+
+    # ---- c. recommend() closed-loop and async --------------------------
+    rbase = dict(n_tx=corpus["n_tx"], n_items=corpus["n_items"],
+                 seed=corpus["seed"], min_support=MIN_SUPPORT,
+                 n_queries=n_queries, top=0, device=device)
+    queries, _ = synthetic_trace(BasketConfig(**corpus), n_queries,
+                                 corpus["seed"] + 101)
+    out["serving"] = {}
+    for pol in ("static", "dynamic"):
+        (closed, crep), _, on_closed = timed(
+            f"recommend {pol}", lambda: recommend(**rbase, policy=pol))
+        (got, arep), _, on_async = timed(
+            f"recommend --async {pol}",
+            lambda: recommend(**rbase, policy=pol, use_async=True))
+        if got != closed:
+            raise AssertionError(f"async serving ({pol}) differs from the "
+                                 "closed loop")
+        for q, recs in zip(queries[:n_oracle], closed):
+            want = recommend_bruteforce(packed.rules,
+                                        np.flatnonzero(q.payload).tolist(),
+                                        crep.k)
+            if recs != want:
+                raise AssertionError(f"recommend ({pol}): {recs} is not the "
+                                     f"brute-force oracle's {want}")
+        for what, on in (("closed", on_closed), ("async", on_async)):
+            if on["rm_packed"] + on["rm_int8"] <= 0:
+                raise AssertionError(f"recommend {what} {pol} launched no "
+                                     f"rule-match kernel: {on}")
+        rates = {"closed_wall_qps": crep.wall_qps,
+                 "closed_p99_sim_s": crep.p99_latency_s,
+                 "async_wall_qps": arep.n_completed / arep.wall_time_s,
+                 "async_sustained_sim_qps": arep.sustained_qps,
+                 "async_p99_sim_s": arep.p99_latency_s}
+        out["serving"][pol] = rates
+        print(f"recommend {pol}: {n_queries} queries, "
+              f"{sum(map(bool, closed))} non-empty, async == closed loop, "
+              f"first {n_oracle} == recommend_bruteforce; closed loop "
+              f"{crep.wall_qps:.0f} QPS (host wall), p99 "
+              f"{crep.p99_latency_s:.4f} s (scheduler clock); async "
+              f"{rates['async_wall_qps']:.0f} QPS (host wall), "
+              f"{arep.sustained_qps:.1f} sustained and p99 "
+              f"{arep.p99_latency_s:.4f} s (scheduler clock); launches "
+              f"closed {on_closed}, async {on_async}")
+
+    # ---- d. the CI's command lines -------------------------------------
+    if matrix:
+        t0 = time.perf_counter()
+        cli = _cli_matrix(Path(__file__).resolve().parent, device)
+        out["walls"]["command lines"] = time.perf_counter() - t0
+        out["command_walls"] = cli
+        for name, ws in cli.items():
+            print(f"  {name}: exit as required, "
+                  + " then ".join(f"{w:.1f} s" for w in ws))
+        print(f"{len(cli)} command chains ({CLI_PARALLEL} at a time) in "
+              f"{out['walls']['command lines']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2906,7 +3289,13 @@ def main() -> int:
     print(f"sharded on {_nvidia_smi('name,power.limit')}: "
           + json.dumps(sharded["walls"]))
 
-    # ---- 14. result lines ---------------------------------------------
+    # ---- 14. the mining and serving CLIs ------------------------------
+    clis = cli_phase(torch, np, dev, T_all, packed, walls, zero_counts,
+                     read_counts)
+    print(f"clis on {_nvidia_smi('name,power.limit')}: " + json.dumps(
+        {k: clis[k] for k in ("walls", "trace", "serving")}))
+
+    # ---- 15. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -2938,6 +3327,8 @@ def main() -> int:
                          max_abs_err=err[key], ok=True, **timing[key]))
         if rows[-1]["ms"] < 0.01:
             rows[-1]["launch_floor_ms"] = floor_ms
+        rows[-1]["apriori_launches"] = clis["apriori_launches"].get(key, 0)
+        rows[-1]["cli_launches"] = clis["cli_launches"].get(key, {})
         if key in son_launches:
             rows[-1]["son_launches"] = son_launches[key]
         if key in sharded["launches"]:

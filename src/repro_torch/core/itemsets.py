@@ -8,10 +8,14 @@ Data plane: transactions are a dense 0/1 matrix ``T ∈ uint8[n_tx, n_items]``
 Control plane (host): level-k candidate *generation* (the classic
 F_{k-1}⋈F_{k-1} join + downward-closure prune) is tiny serial work — the
 paper's "single-threaded task", which the MB Scheduler routes to one core
-while gating the rest (power model hook).  The production driver with full
-scheduling/energy accounting is ``repro_torch.pipeline.MarketBasketPipeline``,
-which shares this module's candidate generation; ``apriori_bruteforce`` is
-the oracle both packages are held to.
+while gating the rest (power model hook).
+
+``apriori`` below is the minimal driver (MapReduce rounds on a
+:class:`SimulatedCluster`, one upload a tile for the whole mine and one
+read back a level); the production path with full scheduling/energy
+accounting, data-plane batching and rule extraction is
+``repro_torch.pipeline.MarketBasketPipeline``, which shares this module's
+candidate generation.  Both are pinned to ``apriori_bruteforce``.
 """
 from __future__ import annotations
 
@@ -20,12 +24,28 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.hetero import HeterogeneityProfile
+from repro_torch.core.mapreduce import (FailureEvent, MapReduceJob,
+                                        SimulatedCluster)
 from repro_torch.kernels.support_count.ref import support_count_ref
+from repro_torch.runtime.transfers import TransferMeter
 
 # The plain support count ([N, I] x [M, I] 0/1 -> [M] int32), under the
 # reference module's name.
 support_counts_ref = support_count_ref
+
+
+def support_counts(T: torch.Tensor, C: torch.Tensor,
+                   use_kernel: bool = False) -> torch.Tensor:
+    """Support counts [M] int32 of candidate masks C [M, I] over
+    transactions T [N, I] (0/1, one device): the support-count kernel the
+    autotune cache picks (``use_kernel``), else the plain count."""
+    if use_kernel:
+        from repro_torch.kernels.support_count.ops import support_count
+        return support_count(T, C)
+    return support_counts_ref(T, C)
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +103,90 @@ class AprioriResult:
 
     def frequent(self, k: Optional[int] = None) -> List[Tuple[int, ...]]:
         return frequent_itemsets(self.supports, k)
+
+
+def _tile_rows(T: np.ndarray, n_tiles: int) -> List[np.ndarray]:
+    return [np.ascontiguousarray(t) for t in np.array_split(T, n_tiles) if len(t)]
+
+
+def apriori(T: np.ndarray, min_support: int, *,
+            cluster: Optional[SimulatedCluster] = None,
+            n_tiles: int = 8,
+            max_k: int = 0,
+            use_kernel: bool = False,
+            failures: Optional[List[FailureEvent]] = None,
+            device: str = "cuda",
+            meter: Optional[TransferMeter] = None) -> AprioriResult:
+    """Level-wise frequent-itemset mining over a transaction bitmap.
+
+    Each level is one MapReduce round: the map phase counts candidate
+    supports on row-tiles of T on ``device`` (the card unless the caller
+    asks for the CPU), the reduce phase sums the count vectors.
+    min_support is absolute.  Every upload and read back goes through
+    ``meter`` (a fresh one when none is given): one upload a tile and a
+    candidate batch, and exactly one read back (sync) a level.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"apriori(device={str(device)!r}) but no CUDA "
+                           "device is available; pass device='cpu' to mine "
+                           "on the CPU")
+    meter = meter or TransferMeter(device)
+    n_tx, n_items = T.shape
+    if cluster is None:
+        cluster = SimulatedCluster(HeterogeneityProfile.paper())
+    # one upload a tile for the whole mine, as uint8 at the bitmap's shape
+    # (the cluster prices a tile by its nbytes); every per-tile map result
+    # stays on the device until the level's one read back below
+    tiles = [meter.h2d(t) for t in _tile_rows(T, n_tiles)]
+    supports: Dict[Tuple[int, ...], int] = {}
+    reports = []
+
+    # ---- step 1: item frequency (<item, count>) ----
+    job1 = MapReduceJob(
+        name="mba-step1-item-counts",
+        map_fn=lambda tile: tile.sum(0, dtype=torch.int32),
+        combine_fn=lambda a, b: a + b,
+        zero_fn=lambda: torch.zeros(n_items, dtype=torch.int32,
+                                    device=device),
+    )
+    counts, rep = cluster.run(job1, tiles, failures=failures)
+    counts = meter.d2h(counts).astype(np.int64)
+    reports.append(("k=1", rep))
+    frequent = [(int(i),) for i in np.nonzero(counts >= min_support)[0]]
+    for (i,) in frequent:
+        supports[(i,)] = int(counts[i])
+
+    # ---- step 2 loop: candidate generation + support counting ----
+    k = 2
+    while frequent and (max_k == 0 or k <= max_k):
+        cands = generate_candidates(frequent)
+        if not cands:
+            break
+        Cd = meter.h2d(itemsets_to_bitmap(cands, n_items))
+
+        def map_fn(tile, Cd=Cd):
+            return support_counts(tile, Cd, use_kernel=use_kernel)
+
+        job = MapReduceJob(
+            name=f"mba-step2-support-k{k}",
+            map_fn=map_fn,
+            combine_fn=lambda a, b: a + b,
+            zero_fn=lambda m=len(cands): torch.zeros(
+                m, dtype=torch.int32, device=device),
+        )
+        sup, rep = cluster.run(job, tiles, failures=failures)
+        sup = meter.d2h(sup).astype(np.int64)   # the level's one read back
+        reports.append((f"k={k}", rep))
+        frequent = []
+        for c, s in zip(cands, sup):
+            if s >= min_support:
+                supports[c] = int(s)
+                frequent.append(c)
+        k += 1
+
+    return AprioriResult(supports=supports, n_tx=n_tx, levels=k - 1,
+                         reports=reports)
 
 
 # ---------------------------------------------------------------------------

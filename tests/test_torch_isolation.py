@@ -110,6 +110,17 @@ cm = MarketBasketPipeline(config=PipelineConfig(
 assert cm.supports == res.supports and cm.rules == res.rules
 print("AUTOTUNE", len(tuned), sorted({p.cost_source
                                       for p in cm.report.ledger.phases}))
+from repro_torch.core.itemsets import apriori
+from repro_torch.launch.mine import mine
+from repro_torch.launch.recommend import recommend
+ap = apriori(T, 15, n_tiles=4, device="cpu", use_kernel=True)
+assert ap.supports == res.supports
+cli = mine(n_tx=300, n_items=24, min_support=0.05, n_tiles=4, seed=5, top=0,
+           algorithm="auto", device="cpu")
+assert cli.supports == res.supports and cli.rules == res.rules
+served, srep = recommend(n_tx=300, n_items=24, min_support=0.05, seed=5,
+                         n_queries=64, use_async=True, device="cpu")
+print("CLIS", ap.levels, len(served), srep.n_completed)
 import numpy as np
 import torch
 from repro_torch.configs.base import get_config
@@ -159,6 +170,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "STREAM 6 ref True" in out.stdout
     assert "STREAM CLI 128" in out.stdout
     assert "AUTOTUNE 3 ['roofline']" in out.stdout
+    assert "CLIS 3 64 64" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -176,7 +188,8 @@ def test_no_source_imports_jax_or_reference():
                    "streaming/source.py", "streaming/miner.py",
                    "launch/common.py", "launch/stream.py",
                    "data/sharding.py", "distributed/fault.py",
-                   "distributed/mining.py", "distributed/ranks.py"):
+                   "distributed/mining.py", "distributed/ranks.py",
+                   "launch/mine.py", "launch/recommend.py"):
         assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  + _NO_MSGPACK.findall(f.read_text()) for f in files}
