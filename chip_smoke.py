@@ -203,7 +203,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     on the card, four at a time: each exits 0, ``--kill-after 3`` exits 3
     and its ``--resume`` 0, and ``--profile-dir`` leaves a
     ``*.pt.trace.json``; every wall printed;
-15. print the card's name and power limit, the ``kernels`` JSON line and,
+15. the remaining LM families: hold the flash kernel against its plain
+    version (2e-5 in float32, 2e-2 in bf16) at their prefill shapes, all
+    at window 0 — [4, 2048, 32/8, 128] (granite-3-8b, minitron-8b,
+    mistral-nemo-12b), [4, 2048, 48/8, 128] (dbrx-132b), [4, 2304, 48/8,
+    128] (internvl2-26b: 256 patches + 2,048 tokens) and [4, 2048, 32/32,
+    64] (musicgen-large) — and time it in bf16 beside the plain version,
+    SDPA and its bound; then, one model at a time in bf16 at full width
+    (the five that fit whole, dbrx-132b at 8 of its 40 layers,
+    deepseek-v2-236b at 6 of its 60, each cut printed), require the
+    reference's parameter tree, run ``make_prefill_step`` at [4 x 2048]
+    tokens (with 256 patch embeddings for internvl2-26b, frame embeddings
+    for musicgen-large) requiring exactly one flash launch a GQA layer on
+    the Hopper route and no other kernel (none on deepseek-v2-236b: MLA
+    and MoE are plain), print its wall beside the host's return time and,
+    for the MoE configs, the slots dropped at ``capacity_factor`` 1.25;
+    serve twice (``serve_demo(smoke=False)`` for the five whole configs,
+    ``prefill_into_cache`` + ``decode`` on the cut weights for the two MoE
+    ones), requiring identical in-range greedy tokens ([4, 32, 4] for
+    musicgen-large) and no kernel launch; then in float32 (whole, or the
+    first 4 layers for internvl2-26b and musicgen-large and 2 for the MoE
+    configs, whose ``capacity_factor`` becomes ``n_experts / top_k`` so
+    that the prefill drops no slot) require the prefill's last-position
+    logits at [2 x 256] to match ``prefill_into_cache`` (the token
+    configs) or the same function on the CPU (vision, audio: the decode
+    path takes no patches or frames) within a relative 1e-3, with equal
+    argmax tokens;
+16. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -280,6 +306,31 @@ HYMBA_TREE_PARAMS = 1_662_161_600
 # LoRAs roughly)
 RWKV_PREFILL = (4, 2048)
 RWKV_TREE_PARAMS = 7_584_878_592
+# the remaining LM families (phase 15): each config's full-width prefill
+# shape, its depth on the card (None: whole) and in the float32 check,
+# and the reference's parameter tree at that depth (jax.eval_shape of its
+# init_params; the configs' param_count() formula leaves out final_ln, the
+# vision projection and musicgen's extra codebook tables)
+FAMILY_PREFILL = (4, 2048)
+FAMILY_F32 = (2, 256)
+FAMILIES = {
+    # arch: (layers drawn in bf16, layers in the float32 check, tree)
+    "granite-3-8b": (None, None, 8_372_187_136),
+    "minitron-8b": (None, None, 9_882_046_464),
+    "mistral-nemo-12b": (None, None, 12_247_782_400),
+    "internvl2-26b": (None, 4, 19_899_009_024),
+    "musicgen-large": (None, 4, 3_259_172_864),
+    "dbrx-132b": (8, 2, 27_305_809_920),
+    "deepseek-v2-236b": (6, 2, 21_247_132_672),
+}
+# the flash kernel's new shapes [B, S, H, KV, hd] on these prefills, all
+# at window 0 (internvl2: 256 vision + 2,048 text tokens)
+FAMILY_FLASH = {
+    "granite-3-8b, minitron-8b, mistral-nemo-12b": (4, 2048, 32, 8, 128),
+    "dbrx-132b": (4, 2048, 48, 8, 128),
+    "internvl2-26b": (4, 2304, 48, 8, 128),
+    "musicgen-large": (4, 2048, 32, 32, 64),
+}
 # float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
 FP32_FLOPS_PER_S = 67e12
 REPS = 20
@@ -2434,6 +2485,284 @@ def cli_phase(torch, np, dev, T_all, packed, walls, zero_counts,
     return out
 
 
+def _family_batch(torch, np, cfg, B, S, dev, seed=0):
+    """A prefill batch: tokens, with bf16/float32 patch embeddings for
+    vision, or frame embeddings for audio, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dtype = getattr(torch, cfg.activ_dtype)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).to(dev)}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.randn(
+            (B, cfg.n_vision_tokens, cfg.d_model), generator=gen,
+            device=dev).to(dtype)
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.randn((B, S, cfg.d_model), generator=gen,
+                                       device=dev).to(dtype)}
+    return batch
+
+
+def families_phase(torch, np, dev, zero_counts, read_counts) -> dict:
+    """Phase 15: the flash kernel at the new families' shapes, then each
+    family's model at full width (whole, or at ``FAMILIES``' depth) through
+    make_prefill_step, the float32 check and the serving loop, one model
+    at a time.  Returns the flash row's additions to the ``kernels``
+    line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.serve import (decode, prefill_into_cache,
+                                          serve_demo)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = {f32: 2e-5, bf16: 2e-2}         # tests/test_kernels.py:61
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    # -- the kernel at the new shapes: against its plain version, timed --
+    shapes, max_err = {}, 0.0
+    for name, (B, S, H, KV, hd) in FAMILY_FLASH.items():
+        for dt in (bf16, f32):
+            q, k, v = (torch.randn((B, S, n, hd), generator=gen,
+                                   device=dev).to(dt) for n in (H, KV, KV))
+            got = flash.flash_attention_fwd(q, k, v, window=0).float()
+            want = flash.flash_attention_plain(q, k, v, window=0).float()
+            diff = (got - want).abs()
+            bad = int((diff > tol[dt] + tol[dt] * want.abs()).sum())
+            e = float(diff.max())
+            print(f"flash_attention {name} [B {B}, S {S}, H {H}, KV {KV}, "
+                  f"hd {hd}] window 0 {str(dt)[6:]}: max abs err {e:.3g} "
+                  f"(tolerance {tol[dt]} + {tol[dt]}·|plain|)")
+            if bad or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention {name}: {bad} values "
+                                     "differ from the plain version")
+            max_err = max(max_err, e)
+            del got, want, diff
+            if dt == f32:
+                continue
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            flops = 4 * B * H * hd * _live_pairs(S, 0)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+            bnd = {"operations": flops / PEAK_FLOPS * 1e3,
+                   "bytes": nbytes / HBM_BW * 1e3}
+            by = max(bnd, key=bnd.get)
+            t = shapes[name] = dict(
+                ms=_cuda_ms(torch, lambda: flash.flash_attention_fwd(
+                    q, k, v, window=0)),
+                plain_ms=_cuda_ms(torch, lambda: flash.flash_attention_plain(
+                    q, k, v, window=0), reps=3),
+                library_ms=_cuda_ms(
+                    torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)),
+                bound_ms=bnd[by], bound_by=by, shape=[B, S, H, KV, hd])
+            print(f"flash_attention {name} [{B}, {S}, {H}/{KV}, {hd}] window"
+                  f" 0 bf16: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({by}; {flops:.3g} flops, "
+                  f"{nbytes} bytes); the kernel at "
+                  f"{t['ms'] / t['bound_ms']:.2f}x its bound and "
+                  f"{t['ms'] / t['library_ms']:.2f}x SDPA's time")
+            del qt, kt, vt
+        del q, k, v
+    torch.cuda.empty_cache()
+    shape_of = {arch: name for name in FAMILY_FLASH
+                for arch in name.split(", ")}
+    launches, walls = {}, {}
+
+    for arch, (depth, depth32, tree) in FAMILIES.items():
+        full = get_config(arch)
+        cfg = full.replace(n_layers=depth) if depth else full
+        gqa = 0 if cfg.mla is not None else cfg.n_layers
+        B, S = FAMILY_PREFILL
+        cut = (f"{cfg.n_layers} of {full.n_layers} layers" if depth
+               else f"all {cfg.n_layers} layers")
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), dev)
+        torch.cuda.synchronize()
+        n_params = T.param_count(params)
+        print(f"{arch}: {cut} at full width, {n_params} parameters in "
+              f"{cfg.param_dtype} drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s (the reference's tree at "
+              f"this depth {tree})")
+        if n_params != tree:
+            raise AssertionError(f"{arch}: {n_params} parameters, not the "
+                                 f"reference tree's {tree}")
+
+        # -- full-width prefill through make_prefill_step ---------------
+        batch = _family_batch(torch, np, cfg, B, S, dev)
+        step = make_prefill_step(cfg)
+        step(params, batch)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = step(params, batch)
+        enqueue = time.perf_counter() - t0   # the host's share of the wall
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        on = read_counts()
+        routes = dict(flash.flash_attention_fwd.launches_by_route)
+        want = {"flash": gqa} if gqa else {}
+        if {key: n for key, n in on.items() if n} != want:
+            raise AssertionError(f"{arch}: a full-width prefill launched "
+                                 f"{on}; want {want or 'no kernel'}")
+        if routes["hopper"] != gqa:
+            raise AssertionError(f"{arch}: the prefill's flash launches took"
+                                 f" the routes {routes}; want all {gqa} on "
+                                 "hopper")
+        lshape = ((B, cfg.n_codebooks, cfg.vocab_size)
+                  if cfg.frontend == "audio" else (B, cfg.vocab_size))
+        if tuple(logits.shape) != lshape or not torch.isfinite(
+                logits).all():
+            raise AssertionError(f"{arch}: prefill logits are not finite "
+                                 f"{lshape}")
+        launches[arch] = on["flash"]
+        kernel_ms = gqa * shapes[shape_of[arch]]["ms"] if gqa else 0.0
+        tokens = B * (S + cfg.n_vision_tokens)
+        walls[arch] = dict(wall_ms=wall * 1e3, enqueue_ms=enqueue * 1e3,
+                           layers=cfg.n_layers, tokens=tokens)
+        print(f"prefill {arch} [{B} x {S}] {cfg.activ_dtype}, {cut}: wall "
+              f"{wall * 1e3:.2f} ms (the host returned from the call after "
+              f"{enqueue * 1e3:.2f} ms), {tokens / wall:.0f} tokens/s, "
+              f"{on['flash']} flash launches (by route {routes}); the "
+              f"kernel {kernel_ms:.2f} ms = {kernel_ms / (wall * 1e3):.1%} "
+              f"of the wall; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del logits
+
+        if cfg.moe is not None:
+            # the slots the prefill drops past capacity, layer by layer
+            dropped = []
+            forward = moe_mod.moe_forward
+
+            def counting(p, c, x):
+                r = moe_mod.route(p, c, x)
+                dropped.append((int(r.dropped), r.keep.numel()))
+                return forward(p, c, x)
+            with mock.patch.object(moe_mod, "moe_forward", counting):
+                step(params, batch)
+            cap = moe_mod.moe_capacity(S, cfg.moe.n_experts,
+                                       cfg.moe.top_k,
+                                       cfg.moe.capacity_factor)
+            print(f"{arch} prefill at capacity_factor "
+                  f"{cfg.moe.capacity_factor} (capacity {cap} slots an "
+                  f"expert a row): dropped "
+                  f"{sum(d for d, _ in dropped)} of "
+                  f"{sum(n for _, n in dropped)} slots over "
+                  f"{len(dropped)} MoE layers "
+                  f"({[d for d, _ in dropped]})")
+            walls[arch]["dropped"] = [d for d, _ in dropped]
+
+        # -- the serving loop, twice, with no kernel launch -------------
+        served = []
+        for _ in range(2):
+            zero_counts()
+            if depth:
+                # serve_demo draws the whole model: at a cut depth the
+                # same loop runs on these weights
+                prompts = torch.from_numpy(np.random.default_rng(0).integers(
+                    0, cfg.vocab_size, (4, 32))).to(dev)
+                t0 = time.perf_counter()
+                last, cache = prefill_into_cache(params, cfg, prompts, 64)
+                toks, _ = decode(params, cfg, cache, last, 32, 32)
+                out = {"tokens": toks, "s": time.perf_counter() - t0}
+                del cache, last
+            else:
+                if not served:
+                    del params, batch
+                    torch.cuda.empty_cache()
+                out = serve_demo(arch, smoke=False, batch=4, prompt_len=32,
+                                 new_tokens=32, device="cuda")
+                out["s"] = out["prefill_s"] + out["decode_s"]
+            on = read_counts()
+            toks = out["tokens"]
+            kshape = ((4, 32, cfg.n_codebooks) if cfg.frontend == "audio"
+                      else (4, 32))
+            loop = ("prefill_into_cache + decode" if depth
+                    else "serve_demo")
+            print(f"{loop} {arch} ({cut}): 32 + 32 tokens x 4 in "
+                  f"{out['s']:.3f} s; launches {on}")
+            if any(on.values()):
+                raise AssertionError(f"{arch}: the serving loop decodes in "
+                                     f"plain code only, but launched {on}")
+            if toks.shape != kshape or not ((toks >= 0)
+                                            & (toks < cfg.vocab_size)).all():
+                raise AssertionError(f"{arch}: served tokens {toks.shape} "
+                                     "out of range")
+            served.append(toks)
+            torch.cuda.empty_cache()
+        if not np.array_equal(*served):
+            raise AssertionError(f"{arch}: two greedy serves disagree")
+        print(f"{arch}: identical greedy tokens twice")
+        params = batch = None
+        torch.cuda.empty_cache()
+
+        # -- float32: the prefill against the decode path, or the CPU ----
+        REL_TOL = 1e-3     # max |prefill - reference| / max |reference|
+        cfg32 = full.replace(param_dtype="float32", activ_dtype="float32",
+                             n_layers=depth32 or full.n_layers)
+        if cfg32.moe is not None:
+            # no slot dropped: the S = 1 decode path drops none either
+            cfg32 = cfg32.replace(moe=dataclasses.replace(
+                cfg32.moe, capacity_factor=cfg32.moe.n_experts
+                / cfg32.moe.top_k))
+        params32 = T.init_params(
+            cfg32, torch.Generator(device=dev).manual_seed(0), dev)
+        B32, S32 = FAMILY_F32
+        batch = _family_batch(torch, np, cfg32, B32, S32, dev, seed=1)
+        zero_counts()
+        by_prefill = make_prefill_step(cfg32)(params32, batch)
+        torch.cuda.synchronize()
+        on_prefill = read_counts()
+        zero_counts()
+        t0 = time.perf_counter()
+        if cfg.frontend is None:
+            against = "prefill_into_cache on the card"
+            ref, _ = prefill_into_cache(params32, cfg32, batch["tokens"],
+                                        S32)
+        else:
+            # the decode path takes no patches and no frames: the same
+            # function runs plain on the CPU
+            against = "make_prefill_step on the CPU"
+            ref = make_prefill_step(cfg32)(
+                _tree_to(params32, "cpu"), _tree_to(batch, "cpu"))
+        ref = ref.to(dev)
+        t_ref = time.perf_counter() - t0
+        on_ref = read_counts()
+        rel = float((by_prefill - ref).abs().max() / ref.abs().max())
+        same = bool((by_prefill.argmax(-1) == ref.argmax(-1)).all())
+        print(f"{arch} float32 [{B32} x {S32}], {cfg32.n_layers} of "
+              f"{full.n_layers} layers: make_prefill_step "
+              f"({on_prefill['flash']} flash launches) against {against} "
+              f"({t_ref:.3f} s, {sum(on_ref.values())} launches): relative "
+              f"max error {rel:.3g} (tolerance {REL_TOL}), argmax tokens "
+              f"{'equal' if same else 'DIFFER'}")
+        want32 = 0 if cfg32.mla is not None else cfg32.n_layers
+        if (rel > REL_TOL or not same or on_prefill["flash"] != want32
+                or any(on_ref.values())):
+            raise AssertionError(f"{arch}: the float32 prefill disagrees")
+        walls[arch].update(f32_layers=cfg32.n_layers, f32_rel_err=rel)
+        del params32, batch, by_prefill, ref
+        torch.cuda.empty_cache()
+
+    return dict(family_launches=launches, family_shapes=shapes,
+                family_walls=walls, family_max_abs_err=max_err)
+
+
+def _tree_to(tree, device):
+    """A tree of dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3295,7 +3624,14 @@ def main() -> int:
     print(f"clis on {_nvidia_smi('name,power.limit')}: " + json.dumps(
         {k: clis[k] for k in ("walls", "trace", "serving")}))
 
-    # ---- 15. result lines ---------------------------------------------
+    # ---- 15. the remaining LM families (full width) --------------------
+    fam = families_phase(torch, np, dev, zero_counts, read_counts)
+    err["flash"] = max(err["flash"], fam.pop("family_max_abs_err"))
+    print(f"families on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps(fam["family_walls"]))
+    timing["flash"].update(fam)
+
+    # ---- 16. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (

@@ -3,8 +3,8 @@
 Every architecture is a :class:`ModelConfig`; the registry maps
 ``--arch <id>`` to a config factory.  Configs are plain frozen dataclasses
 so they hash and print reproducibly, and a reference config file copies
-over unchanged.  Only the architectures whose model branches the port
-runs are registered (see ``_ensure_loaded``).
+over unchanged.  All ten of the reference's architectures are registered
+(see ``_ensure_loaded``).
 """
 from __future__ import annotations
 
@@ -240,7 +240,8 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    # the other architectures register with their model branches
-    # (ROADMAP, LM slices)
     from repro_torch.configs import (  # noqa: F401
-        gemma3_1b, hymba_1_5b, rwkv6_7b)
+        granite_3_8b, minitron_8b, mistral_nemo_12b, gemma3_1b, dbrx_132b,
+        deepseek_v2_236b, hymba_1_5b, musicgen_large, rwkv6_7b,
+        internvl2_26b,
+    )

@@ -2,10 +2,11 @@
 static-slot batch, as the reference's ``launch/serve.py``.
 
 The prompt is prefilled token by token through ``decode_step`` (plain
-attention over the KV cache, or one plain step of the recurrent state,
-uniform across cache kinds), so this loop launches none of the LM
+attention over the KV or latent cache, or one plain step of the recurrent
+state, uniform across cache kinds), so this loop launches none of the LM
 kernels; the fused full-sequence prefill is
-``launch.steps.make_prefill_step``.
+``launch.steps.make_prefill_step``.  An audio model's prompt is its tokens
+repeated over the codebooks, and it decodes one token a codebook a step.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --smoke --batch 4 --prompt-len 32 --new-tokens 32 [--device cpu]
@@ -32,8 +33,9 @@ def _sync(device: torch.device) -> None:
 def prefill_into_cache(params, cfg: ModelConfig, tokens: torch.Tensor,
                        max_seq: int):
     """Build the KV cache by running decode_step over the prompt, one
-    token at a time.  Returns (last logits [B, V], cache)."""
-    B, S = tokens.shape
+    token at a time.  tokens: [B, S], or [B, S, K] over the audio
+    codebooks.  Returns (last logits [B, V] or [B, K, V], cache)."""
+    B, S = tokens.shape[:2]
     cache = T.init_cache(cfg, B, max_seq, tokens.device)
     logits = None
     for t in range(S):
@@ -47,16 +49,18 @@ def decode(params, cfg: ModelConfig, cache, last_logits: torch.Tensor,
            start_pos: int, n_new: int, temperature: float = 0.0,
            seed: int = 0):
     """Greedy (``temperature == 0``) or sampled decoding of ``n_new``
-    tokens.  Returns (tokens [B, n_new] int32 numpy, cache).  Samples are
-    drawn from a ``torch.Generator`` seeded with ``seed``: the same
-    distribution as the reference's, not the same draws."""
+    tokens.  Returns (tokens [B, n_new] int32 numpy, or [B, n_new, K]
+    over the audio codebooks, and the cache).  Samples are drawn from a
+    ``torch.Generator`` seeded with ``seed``: the same distribution as the
+    reference's, not the same draws."""
     gen = torch.Generator(device=last_logits.device).manual_seed(seed)
     out = []
     logits = last_logits
     for i in range(n_new):
         if temperature > 0:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                    generator=gen).view(logits.shape[:-1])
         else:
             tok = torch.argmax(logits, dim=-1)
         out.append(tok.to(torch.int32))
@@ -87,6 +91,8 @@ def serve_demo(arch: str, batch: int = 4, prompt_len: int = 32,
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(device)
+    if cfg.frontend == "audio":
+        prompts = prompts[:, :, None].expand(-1, -1, cfg.n_codebooks)
     max_seq = prompt_len + new_tokens
 
     t0 = time.perf_counter()

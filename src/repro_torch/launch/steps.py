@@ -2,7 +2,7 @@
 :class:`ModelConfig` as in the reference.
 
 The train step waits for a backward pass: no kernel of the reference has
-one (ROADMAP item 6).
+one (ROADMAP item 6.5).
 """
 from __future__ import annotations
 
@@ -13,10 +13,13 @@ from repro_torch.models import transformer as T
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch) -> last-position logits [B, V].  On the card every
-    layer's attention is one launch of the flash kernel, every hybrid
-    layer's SSM scan one launch of the selective-scan kernel, and every
-    rwkv layer's WKV recurrence one launch of the wkv6 kernel."""
+    """(params, batch) -> last-position logits [B, V] ([B, K, V] for
+    audio).  ``batch`` holds ``tokens`` [B, S], with ``vision_embeds``
+    [B, Nv, d] for vision, or ``frames`` [B, S, d] for audio.  On the card
+    every GQA layer's attention is one launch of the flash kernel, every
+    hybrid layer's SSM scan one launch of the selective-scan kernel, and
+    every rwkv layer's WKV recurrence one launch of the wkv6 kernel; MLA
+    and MoE layers are plain tensor code, as in the reference."""
 
     @torch.no_grad()
     def prefill_step(params, batch):

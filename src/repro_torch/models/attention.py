@@ -1,4 +1,5 @@
-"""Attention: GQA with sliding-window local and global layers.
+"""Attention: GQA with sliding-window local and global layers, and MLA
+(DeepSeek-V2's multi-head latent attention).
 
 Two plain full-sequence implementations, as in the reference:
 
@@ -8,7 +9,10 @@ Two plain full-sequence implementations, as in the reference:
 They are the CPU path.  On the card ``attention_full`` runs the hand-written
 flash kernel (``repro_torch.kernels.flash_attention``) for either
 ``attention_impl``: all three compute one function.  Decoding one token
-against the cache stays plain tensor code, as in the reference.
+against the cache stays plain tensor code, as in the reference.  MLA is
+plain tensor code on either device, by the reference's design: its q/k
+head size (nope + rope, 192 at full width) differs from its v head size
+(128), and the reference computes it outside its Pallas kernel.
 
 Window semantics: ``window <= 0`` means full causal; ``window = w`` allows
 key j for query i iff ``i - w < j <= i``.  Windows are Python ints, one per
@@ -191,6 +195,112 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict, pos: int,
     prob = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", prob, vr).reshape(B, 1, H * hd)
     return out @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+def mla_init(generator: torch.Generator, cfg, dtype: torch.dtype) -> Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(generator, d, m.q_lora_rank, dtype),
+        "wq_b": dense_init(generator, m.q_lora_rank, H * qk, dtype),
+        "wkv_a": dense_init(generator, d, m.kv_lora_rank + m.qk_rope_head_dim,
+                            dtype),
+        "wkv_b": dense_init(generator, m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim), dtype),
+        "wo": dense_init(generator, H * m.v_head_dim, d, dtype),
+    }
+
+
+def _mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(
+        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = torch.split(x @ p["wkv_a"],
+                               [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                      # [B,S,1,rope]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(m) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_forward(p: Params, cfg, x: torch.Tensor, window: int = 0,
+                positions=None, return_cache: bool = False):
+    """Full-sequence MLA (prefill, non-absorbed form).  Causal over the
+    whole sequence: like the reference, it takes ``window`` and ignores
+    it."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H,
+                                     m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
+                  dim=-1)
+    if cfg.attention_impl == "chunked" and S % cfg.attention_chunk == 0:
+        out = chunked_attention(q, k, v, causal=True, window=0,
+                                chunk=cfg.attention_chunk)
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
+            * _mla_scale(m)
+        idx = torch.arange(S, device=x.device)
+        s = torch.where((idx[None, :] <= idx[:, None])[None, None], s,
+                        NEG_INF)
+        prob = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", prob, v)
+    y = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    if return_cache:
+        return y, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+    return y
+
+
+def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
+               pos: int) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-form MLA decode: attends in the compressed latent space.
+
+    cache: c_kv [B, Smax, kv_lora], k_rope [B, Smax, rope], written in
+    place at ``pos`` (as :func:`gqa_decode` writes K and V) and returned.
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    Smax = cache["c_kv"].shape[1]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(
+        p, cfg, x, torch.full((B, 1), pos, device=x.device))
+    cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos] = k_rope_new[:, 0, 0].to(cache["k_rope"].dtype)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    # absorb wkv_b's K half into q: q_eff [B, 1, H, kv_lora]
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H,
+                               m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[:, :, :m.qk_nope_head_dim]             # [lora, H, nope]
+    w_uv = wkv_b[:, :, m.qk_nope_head_dim:]             # [lora, H, v]
+    q_eff = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)
+    s = (torch.einsum("bqhl,bkl->bhqk", q_eff, c_kv)
+         + torch.einsum("bqhr,bkr->bhqk", q_rope, k_rope)).to(
+             torch.float32) * _mla_scale(m)
+    kj = torch.arange(Smax, device=x.device)
+    s = torch.where(kj <= pos, s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqk,bkl->bqhl", prob, c_kv)     # latent context
+    out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)
+    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
 
 
 def layer_windows(cfg) -> List[int]:

@@ -22,8 +22,11 @@ def _leaf(a: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cpu"):
-    """A dict tree of numpy arrays (or one array) → the same tree of
-    tensors on ``device``."""
+    """A tree of dicts and lists of numpy arrays (or one array) → the same
+    tree of tensors on ``device`` (a MoE config's ``dense_layers`` is a
+    list)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, device) for v in tree]
     return _leaf(tree, device)

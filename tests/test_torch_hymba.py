@@ -27,6 +27,7 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
 from repro.models import transformer as ref_T  # noqa: E402
+import torch_lm_parity  # noqa: E402
 from repro_torch.configs.base import (MLAConfig, MoEConfig,  # noqa: E402
                                      get_config)
 from repro_torch.kernels.flash_attention import kernel as flash  # noqa: E402
@@ -341,8 +342,20 @@ def test_full_config_matches_reference_without_building_it():
     dict(frontend="vision", n_vision_tokens=4)],
     ids=["moe", "mla", "vision"])
 def test_hybrid_with_unported_branches_raises(change):
+    """Branches the port once refused on the hybrid block: an MoE FFN and
+    a vision frontend now match the reference (tree, prefill logits,
+    greedy tokens).  MLA still raises: the reference's hybrid block runs
+    GQA over the MLA weights, so its own prefill cannot run either."""
+    if "mla" not in change:
+        torch_lm_parity.check_branch(ARCH, **change)
+        return
     cfg = get_config(ARCH, smoke=True).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ref_cfg, _ = torch_lm_parity.configs(ARCH, **change)
+    ref_params = ref_T.init_params(ref_cfg, jax.random.PRNGKey(0))
+    with pytest.raises(KeyError, match="wq"):
+        ref_T.prefill(ref_params, ref_cfg, {"tokens": jnp.zeros((1, 4),
+                                                                jnp.int32)})
+    with pytest.raises(NotImplementedError, match="hybrid block with MLA"):
         T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="hybrid block with MLA"):
         T.init_cache(cfg, 1, 4)

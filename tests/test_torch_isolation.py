@@ -145,6 +145,20 @@ params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 logits = make_prefill_step(cfg)(params, {"tokens": toks})
 assert logits.shape == (2, cfg.vocab_size) and bool(logits.isfinite().all())
 print("RWKV", tuple(logits.shape))
+for arch in ("granite-3-8b", "dbrx-132b", "deepseek-v2-236b",
+             "internvl2-26b", "musicgen-large"):
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": toks % cfg.vocab_size}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.randn(2, cfg.n_vision_tokens,
+                                             cfg.d_model)
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.randn(2, 24, cfg.d_model)}
+    logits = make_prefill_step(cfg)(params, batch)
+    assert bool(logits.isfinite().all())
+    out = serve_demo(arch, batch=2, prompt_len=4, new_tokens=2, device="cpu")
+    print("FAMILY", arch, tuple(logits.shape), out["tokens"].shape)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
              and sys.modules[m] is not None)
@@ -165,6 +179,11 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "SERVED (2, 4)" in out.stdout
     assert "HYBRID (2, 512)" in out.stdout
     assert "RWKV (2, 512)" in out.stdout
+    for line in ("granite-3-8b (2, 256) (2, 2)", "dbrx-132b (2, 512) (2, 2)",
+                 "deepseek-v2-236b (2, 512) (2, 2)",
+                 "internvl2-26b (2, 512) (2, 2)",
+                 "musicgen-large (2, 2, 64) (2, 2, 2)"):
+        assert f"FAMILY {line}" in out.stdout
     assert "SON 3 6" in out.stdout
     assert "SHARDED 1 1 3" in out.stdout
     assert "STREAM 6 ref True" in out.stdout
@@ -189,7 +208,9 @@ def test_no_source_imports_jax_or_reference():
                    "launch/common.py", "launch/stream.py",
                    "data/sharding.py", "distributed/fault.py",
                    "distributed/mining.py", "distributed/ranks.py",
-                   "launch/mine.py", "launch/recommend.py"):
+                   "launch/mine.py", "launch/recommend.py",
+                   "models/moe.py", "models/stubs.py",
+                   "configs/deepseek_v2_236b.py"):
         assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  + _NO_MSGPACK.findall(f.read_text()) for f in files}

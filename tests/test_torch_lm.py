@@ -19,11 +19,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import get_config as ref_get_config  # noqa: E402
+from repro.configs.base import list_archs as ref_list_archs  # noqa: E402
 from repro.launch import serve as ref_serve  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import transformer as ref_T  # noqa: E402
+import torch_lm_parity  # noqa: E402
 from repro_torch.configs.base import (MLAConfig, MoEConfig,  # noqa: E402
                                      get_config, list_archs)
 from repro_torch.kernels.flash_attention import kernel  # noqa: E402
@@ -278,9 +280,23 @@ def test_full_config_matches_reference_without_building_it():
         assert cfg.kv_cache_bytes(batch, seq) == \
             ref_cfg.kv_cache_bytes(batch, seq)
     assert cfg.shapes() == ref_cfg.shapes()
-    assert list(list_archs()) == [ARCH, "hymba-1.5b", "rwkv6-7b"]
+    assert list(list_archs()) == list(ref_list_archs())
+    assert len(list_archs()) == 10
     with pytest.raises(KeyError):
-        get_config("deepseek-v2-236b")
+        get_config("llama-70b")
+
+
+def test_params_from_numpy_carries_lists():
+    """A MoE config's leading dense layers are a list of layer trees."""
+    tree = {"dense_layers": [{"w": np.ones((2, 3), np.float32)},
+                             {"w": np.zeros((2, 3), np.float32)}],
+            "embed": np.arange(4, dtype=np.int32)}
+    got = params_from_numpy(tree)
+    assert isinstance(got["dense_layers"], list)
+    assert [float(t["w"].sum()) for t in got["dense_layers"]] == [6.0, 0.0]
+    assert T.param_count(got) == 16
+    assert T._layer({"a": [torch.arange(6).view(3, 2)]}, 1)["a"][0].tolist() \
+        == [2, 3]
 
 
 def test_params_from_numpy_keeps_bf16_bits():
@@ -293,7 +309,7 @@ def test_params_from_numpy_keeps_bf16_bits():
 
 
 # ---------------------------------------------------------------------------
-# serve_demo and the branches that wait
+# serve_demo and the other branches
 # ---------------------------------------------------------------------------
 
 
@@ -321,13 +337,19 @@ def test_serve_demo_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("change, match", [
-    (dict(frontend="vision", n_vision_tokens=4), "ROADMAP"),
+    (dict(frontend="vision", n_vision_tokens=4), None),
     (dict(block_type="rwkv7"), "unknown block type 'rwkv7'"),
-    (dict(moe=MoEConfig(n_experts=4, top_k=2)), "ROADMAP"),
-    (dict(mla=MLAConfig()), "ROADMAP"),
-    (dict(frontend="audio", n_codebooks=4), "ROADMAP")],
+    (dict(moe=MoEConfig(n_experts=4, top_k=2)), None),
+    (dict(mla=MLAConfig()), None),
+    (dict(frontend="audio", n_codebooks=4), None)],
     ids=["vision", "rwkv", "moe", "mla", "audio"])
 def test_unported_branches_raise(change, match):
+    """The branches the port once refused on gemma3-1b's smoke config:
+    vision, MoE, MLA and audio now run and match the reference (tree,
+    prefill logits, greedy tokens); an unknown block type still raises."""
+    if match is None:
+        torch_lm_parity.check_branch(ARCH, **change)
+        return
     cfg = get_config(ARCH, smoke=True).replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         T.init_params(cfg, torch.Generator().manual_seed(0))

@@ -29,6 +29,7 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
 from repro.models import rwkv6 as ref_rwkv6  # noqa: E402
 from repro.models import transformer as ref_T  # noqa: E402
+import torch_lm_parity  # noqa: E402
 from repro_torch.configs.base import (MLAConfig, MoEConfig,  # noqa: E402
                                      get_config)
 from repro_torch.kernels.rwkv6_wkv import kernel as wkv  # noqa: E402
@@ -376,8 +377,8 @@ def test_full_config_matches_reference_without_building_it():
     dict(frontend="vision", n_vision_tokens=4)],
     ids=["moe", "mla", "vision"])
 def test_rwkv_with_unported_branches_raises(change):
-    cfg = get_config(ARCH, smoke=True).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 1, 4)
+    """Branches the port once refused on the rwkv block now match the
+    reference (tree, prefill logits, greedy tokens): the reference's rwkv
+    block ignores MoE and MLA, and a vision frontend prepends its
+    patches."""
+    torch_lm_parity.check_branch(ARCH, **change)
