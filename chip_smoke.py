@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build all eight kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. build all nine kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
    path gives it (one transaction tile × the k=2 candidate batch, and the
@@ -229,7 +229,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     configs) or the same function on the CPU (vision, audio: the decode
     path takes no patches or frames) within a relative 1e-3, with equal
     argmax tokens;
-16. print the card's name and power limit, the ``kernels`` JSON line and,
+16. one-card training: hold the forward's ``lse`` and output against
+    their plain versions, and the flash backward kernel (dQ, dK, dV from
+    the forward's ``lse``) against its plain version fed the plain forward's
+    (each tile-sized block within ``BWD_GATE``, in bf16 and float32),
+    require the gate to fail a planted fault (one tile skipped), two
+    launches bit-identical, at the
+    training shapes ``TRAIN_BWD_CASES`` (gemma3-1b [4, 2048, 4/1, 256] at
+    windows 512 and 0, [4, 2048, 32/8, 128], [4, 2048, 32/32, 64]), and
+    time it in bf16 beside its plain version, SDPA's backward and its
+    bound (operations: 10·B·H·hd·live keys flops at the bf16 peak); draw
+    gemma3-1b whole at full width (bf16, ``remat_policy="full"``) and run
+    ``TRAIN_STEPS`` steps of ``make_train_step`` on [4 x 2048] batches of
+    the token pipeline, requiring exactly 2 flash forward launches a layer
+    a step (one recomputed in backward), all on the Hopper route, one
+    backward call (three launches) a layer a step and no other kernel,
+    printing step walls,
+    tokens/s and peak memory; repeat the run and require bit-identical
+    losses, parameters and moments; run ``TRAIN_SAVE_AFTER`` step, save
+    through the store, restore and continue, and require the
+    uninterrupted run's bits; one float32 step's gradients at [2 x 2048]
+    against the same step with the plain attention on the card, each leaf
+    within ``TRAIN_F32_TOL`` of its max |gradient|; granite-3-8b at
+    ``GRANITE_TRAIN_LAYERS`` of its 40 layers for ``TRAIN_STEPS`` steps with
+    the same counts; the smoke command line ``TRAIN_CLI`` (through
+    ``launch.train.main``), whose mean loss over its last 5 steps must sit
+    more than 0.1 under its first 5's; and hymba-1.5b and rwkv6-7b, whose
+    train step must raise the ``NotImplementedError`` naming their ROADMAP
+    items;
+17. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -331,6 +359,34 @@ FAMILY_FLASH = {
     "internvl2-26b": (4, 2304, 48, 8, 128),
     "musicgen-large": (4, 2048, 32, 32, 64),
 }
+# one-card training (phase 16): the backward kernel's training shapes
+# (name, B, S, H, KV, hd, window); the kernel's gate against its plain
+# version, (rtol, atol) by dtype: each block of BWD_GATE_ROWS rows (one
+# tile, n elements) of each batch row and head within rtol·||plain|| +
+# atol·√n (the atol holds the gradients that cancel to 0, as dq's first
+# row does); the forward's lse against its plain version (float32,
+# relative and absolute); the
+# [batch x tokens] of a train step, steps a run, the step after which the
+# resumed run saves, the float32 step's batch and its gradients'
+# tolerance against the plain attention (each leaf's max |difference|
+# over its max |gradient|: float32 sums in another order through 26
+# random-weight layers), granite-3-8b's depth of 40 on the card, and the
+# smoke CLI's command line
+TRAIN_BWD_CASES = [("gemma3-1b", 4, 2048, 4, 1, 256, 512),
+                   ("gemma3-1b", 4, 2048, 4, 1, 256, 0),
+                   ("granite-3-8b", 4, 2048, 32, 8, 128, 0),
+                   ("musicgen-large", 4, 2048, 32, 32, 64, 0)]
+BWD_GATE_ROWS = 64
+BWD_GATE = {"float32": (1e-5, 1e-7), "bfloat16": (1e-2, 1e-5)}
+LSE_TOL = 1e-5
+TRAIN_BATCH = (4, 2048)
+TRAIN_STEPS = 3
+TRAIN_SAVE_AFTER = 1
+TRAIN_F32_BATCH = (2, 2048)
+TRAIN_F32_TOL = 1e-5
+GRANITE_TRAIN_LAYERS = 8
+TRAIN_CLI = ["--arch", "gemma3-1b", "--smoke", "--steps", "30", "--batch",
+             "8", "--seq", "64", "--lr", "3e-3", "--device", "cuda"]
 # float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
 FP32_FLOPS_PER_S = 67e12
 REPS = 20
@@ -1106,6 +1162,65 @@ def _live_pairs(S: int, window: int) -> int:
     if window <= 0 or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
+
+
+def _block_err(got, want, rtol: float, atol: float,
+               rows: int = BWD_GATE_ROWS) -> float:
+    """The largest ||got - want|| / (rtol·||want|| + atol·√n) over the
+    blocks of ``rows`` sequence rows (n elements) of each batch row and
+    head of two [B, S, heads, hd] tensors: at most 1 where every block is
+    within its limit.  A tile-sized block holds the late rows, whose
+    gradients are small, as tightly as the early ones."""
+    B, S, Hh, hd = want.shape
+    n = -(-S // rows)
+    x = want.float().new_zeros((2, B, n * rows, Hh, hd))
+    x[0, :, :S] = got.float() - want.float()
+    x[1, :, :S] = want.float()
+    d, w = x.reshape(2, B, n, rows, Hh, hd).square().sum((3, 5)).sqrt()
+    return float((d / (rtol * w + atol * (rows * hd) ** 0.5)).max())
+
+
+def _planted_faults(torch, q, k, v, lse, dout, out, window: int,
+                    tile: int = BWD_GATE_ROWS):
+    """What a backward kernel that skips one tile would lose, as (dq, dk,
+    dv) in float32 and zero elsewhere: the last query tile's farthest live
+    KV tile in the dQ pass, and the last live query tile of the middle KV
+    tile in the dK/dV pass.  ``got - fault`` is such a kernel's result."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = hd ** -0.5
+    qf, of, gf = (x.float() for x in (q, out, dout))
+    kf, vf = (x.float().repeat_interleave(H // KV, dim=2) for x in (k, v))
+    D = (gf * of).sum(-1).transpose(1, 2)                 # [B, H, S]
+
+    def p_ds(qr, kr):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, qr], kf[:, kr]) * scale
+        i = torch.arange(qr.start, qr.stop, device=q.device)[:, None]
+        j = torch.arange(kr.start, kr.stop, device=q.device)[None, :]
+        live = (j <= i) & ((j > i - window) if window > 0 else True)
+        p = torch.where(live, torch.exp(s - lse[:, :, qr, None]), 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf[:, qr], vf[:, kr])
+        return p, p * (dp - D[:, :, qr, None])
+
+    def tile_of(row):
+        t0 = row // tile * tile
+        return slice(t0, min(S, t0 + tile))
+
+    dq = torch.zeros_like(qf)
+    dk, dv = (torch.zeros(k.shape, device=q.device) for _ in range(2))
+    qr = tile_of(S - 1)
+    kr = tile_of(max(0, qr.start - window + 1) if window > 0 else 0)
+    _, ds = p_ds(qr, kr)
+    dq[:, qr] = torch.einsum("bhqk,bkhd->bqhd", ds, kf[:, kr]) * scale
+    kr = tile_of(S // 2)
+    qr = tile_of(min(S - 1, kr.stop + window - 2) if window > 0 else S - 1)
+    p, ds = p_ds(qr, kr)
+    n = kr.stop - kr.start
+    dk[:, kr] = (torch.einsum("bhqk,bqhd->bkhd", ds, qf[:, qr]) * scale
+                 ).reshape(B, n, KV, H // KV, hd).sum(3)
+    dv[:, kr] = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(),
+                             gf[:, qr]).reshape(B, n, KV, H // KV, hd).sum(3)
+    return dq, dk, dv
 
 
 def lm_phase(torch, np, dev, zero_counts, read_counts) -> dict:
@@ -2754,6 +2869,359 @@ def families_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                 family_walls=walls, family_max_abs_err=max_err)
 
 
+def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
+    """Phase 16: one-card training.  The flash backward kernel against its
+    plain version and timed at the training shapes; gemma3-1b whole at
+    full width (bf16, ``remat_policy="full"``) through ``make_train_step``
+    with exact launch counts, a bit-identical repeat and a bit-identical
+    resume from a checkpoint; one float32 step against the plain
+    attention's; granite-3-8b at ``GRANITE_TRAIN_LAYERS`` of 40 layers; the
+    smoke CLI's falling loss; hybrid and rwkv refusing to train.  Returns
+    the backward kernel's row of the ``kernels`` line and the flash
+    forward's training launches."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    per_call = flash.BWD_LAUNCHES_PER_CALL
+    gen = torch.Generator(device=dev).manual_seed(16)
+    smi = _nvidia_smi("name,power.limit")
+
+    # -- 16a: the backward kernel against its plain version, timed --------
+    # The plain backward is fed the plain forward's out and lse, so that
+    # the oracle inherits nothing of the kernels; a planted fault (one
+    # tile skipped) must fail the gate that the kernel passes.
+    max_err, timing = 0.0, {}
+    for name, B, S, H, KV, hd, w in TRAIN_BWD_CASES:
+        for dt in (bf16, f32):
+            label = (f"flash_attention_bwd {name} [{B}, {S}, {H}/{KV}, "
+                     f"{hd}] window {w} {str(dt)[6:]}")
+            rtol, atol = BWD_GATE[str(dt)[6:]]
+            q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                          for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                        (B, S, KV, hd), (B, S, H, hd)))
+            out, lse = flash.flash_attention_fwd(q, k, v, window=w,
+                                                 return_lse=True)
+            out_p = flash.flash_attention_plain(q, k, v, window=w)
+            lse_p = flash.flash_attention_lse_plain(q, k, window=w)
+            lse_err = float(((lse - lse_p).abs()
+                             / (LSE_TOL * (1 + lse_p.abs()))).max())
+            out_err = _block_err(out, out_p, rtol, atol)
+            got = flash.flash_attention_bwd(q, k, v, out, lse, g, window=w)
+            again = flash.flash_attention_bwd(q, k, v, out, lse, g,
+                                              window=w)
+            want = flash.flash_attention_bwd_plain(q, k, v, out_p, lse_p, g,
+                                                   window=w)
+            fault = _planted_faults(torch, q, k, v, lse_p, g, out_p, w)
+            torch.cuda.synchronize()
+            errs, gate, caught = [], [], []
+            for x, a, b, ref, f in zip("qkv", got, again, want, fault):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: d{x} differs between "
+                                         "two launches")
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{label}: d{x} is not finite")
+                errs.append(float((a.float() - ref.float()).abs().max()))
+                gate.append(_block_err(a, ref, rtol, atol))
+                caught.append(_block_err(a.float() - f, ref, rtol, atol))
+            max_err = max(max_err, *errs)
+            print(f"{label}: lse at {lse_err:.3g} of its tolerance ("
+                  f"{LSE_TOL} x (1 + |plain|)); out and dq/dk/dv at "
+                  f"{out_err:.3g} and {gate[0]:.3g}/{gate[1]:.3g}/"
+                  f"{gate[2]:.3g} of their block limit ({rtol} x ||plain|| "
+                  f"+ {atol} x sqrt(n)), a planted skipped tile at "
+                  f"{caught[0]:.3g}/{caught[1]:.3g}/{caught[2]:.3g}; max "
+                  f"abs err {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}; two "
+                  "launches bit-identical")
+            if lse_err > 1 or out_err > 1 or max(gate) > 1:
+                raise AssertionError(f"{label}: differs from the plain "
+                                     "version")
+            if min(caught) <= 1:
+                raise AssertionError(f"{label}: the gate passes a planted "
+                                     "skipped tile")
+            del got, again, want, fault, out_p, lse_p
+            if dt is bf16:
+                flops = 10 * B * H * hd * _live_pairs(S, w)
+                nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+                    + lse.numel() * 4
+                bnd = {"operations": flops / PEAK_FLOPS * 1e3,
+                       "bytes": nbytes / HBM_BW * 1e3}
+                by = max(bnd, key=bnd.get)
+                held = [x.transpose(1, 2).contiguous().requires_grad_(True)
+                        for x in (q, k, v)]
+                if w:
+                    i = torch.arange(S, device=dev)
+                    mask = (i[None, :] <= i[:, None]) & (
+                        i[None, :] > i[:, None] - w)
+                    o_s = F.scaled_dot_product_attention(
+                        *held, attn_mask=mask, enable_gqa=True)
+                else:
+                    o_s = F.scaled_dot_product_attention(
+                        *held, is_causal=True, enable_gqa=True)
+                g_s = g.transpose(1, 2).contiguous()
+                t = dict(
+                    ms=_cuda_ms(torch, lambda: flash.flash_attention_bwd(
+                        q, k, v, out, lse, g, window=w)),
+                    plain_ms=_cuda_ms(
+                        torch, lambda: flash.flash_attention_bwd_plain(
+                            q, k, v, out, lse, g, window=w), reps=3),
+                    library_ms=_cuda_ms(torch, lambda: torch.autograd.grad(
+                        o_s, held, g_s, retain_graph=True)),
+                    bound_ms=bnd[by], bound_by=by, window=w,
+                    shape=[B, S, H, KV, hd], model=name)
+                print(f"flash_attention_bwd [{B}, {S}, {H}/{KV}, {hd}] "
+                      f"window {w} bf16: kernel {t['ms']:.4f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms, SDPA backward "
+                      f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+                      f"ms ({by}; {flops:.3g} flops, {nbytes} bytes): the "
+                      f"kernel at {t['ms'] / t['bound_ms']:.1f}x its bound "
+                      f"and {t['ms'] / t['library_ms']:.2f}x SDPA's backward"
+                      f" on {smi}")
+                timing[f"{name} window {w}"] = t
+                del held, o_s, g_s
+            del q, k, v, g, out, lse
+    torch.cuda.empty_cache()
+
+    def tree_equal(a, b):
+        """Leaf for leaf bit-equal, ``b`` brought to ``a``'s device a leaf
+        at a time."""
+        return all(torch.equal(x, y.to(x.device))
+                   for x, y in zip(adamw.tree_leaves(a),
+                                   adamw.tree_leaves(b)))
+
+    def to_host(tree):
+        return adamw.tree_map(lambda t: t.to("cpu"), tree)
+
+    def run_steps(cfg, step, pipe, p, s, first, n, B, S):
+        """``n`` train steps from step ``first``: (p, s, losses, walls),
+        each wall ending in a synchronise."""
+        losses, walls = [], []
+        for i in range(first, first + n):
+            batch = train_mod.make_batch_for(cfg, pipe, i, B, S, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{cfg.arch_id}: losses {losses}")
+        return p, s, losses, walls
+
+    def counted_run(cfg, label):
+        """Draw ``cfg`` at full width and run ``TRAIN_STEPS`` steps with the
+        counts zeroed just before and read just after."""
+        B, S = TRAIN_BATCH
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+        torch.cuda.synchronize()
+        n = T.param_count(params)
+        print(f"{label}: {n} parameters drawn in {time.perf_counter() - t0:.2f}"
+              " s")
+        opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                    total_steps=TRAIN_STEPS)
+        step = steps.make_train_step(cfg, opt_cfg)
+        pipe = TokenPipeline(TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        p, s, losses, walls = run_steps(cfg, step, pipe, params,
+                                        adamw.init_opt_state(params), 0,
+                                        TRAIN_STEPS, B, S)
+        on = read_counts()
+        routes = dict(flash.flash_attention_fwd.launches_by_route)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = {"flash": 2 * cfg.n_layers * TRAIN_STEPS,
+                "flash_bwd": per_call * cfg.n_layers * TRAIN_STEPS}
+        if {k: on[k] for k in want} != want or any(
+                n_ for k, n_ in on.items() if k not in want):
+            raise AssertionError(f"{label}: {TRAIN_STEPS} steps launched "
+                                 f"{on}; want {want} and nothing else")
+        if routes["hopper"] != want["flash"]:
+            raise AssertionError(f"{label}: forward routes {routes}")
+        steady = float(np.median(walls[1:]))
+        row = dict(parameters=n, steps=TRAIN_STEPS, batch=[B, S],
+                   losses=losses, step_walls_s=walls,
+                   tokens_per_s=B * S / steady, peak_gib=peak / 2**30,
+                   launches=on, forward_routes=routes)
+        print(f"{label} train [{B} x {S}], remat {cfg.remat_policy}: losses "
+              f"{[round(x, 4) for x in losses]}, step walls "
+              f"{[round(x, 4) for x in walls]} s ({row['tokens_per_s']:.0f} "
+              f"tokens/s after the first), peak {row['peak_gib']:.2f} GiB; "
+              f"launches {on} (exactly {want['flash']} forward, "
+              f"{want['flash'] // 2} of them recomputed, and "
+              f"{want['flash_bwd']} backward, {per_call} a call) on {smi}")
+        return row, params, step, pipe, p, s
+
+    # -- 16b: gemma3-1b whole, bf16: counts, repeat, resume ---------------
+    cfg = get_config("gemma3-1b")
+    if cfg.remat_policy != "full":
+        raise AssertionError(f"gemma3-1b's remat_policy {cfg.remat_policy}")
+    gemma, params, step, pipe, pA, sA = counted_run(cfg, "gemma3-1b")
+    # the uninterrupted run's state waits on the host, so that the card
+    # holds one run's state beside a step's activations and logits
+    pA, sA = to_host(pA), to_host(sA)
+    torch.cuda.empty_cache()
+    B, S = TRAIN_BATCH
+    pB, sB, lossB, _ = run_steps(cfg, step, pipe, params,
+                                 adamw.init_opt_state(params), 0,
+                                 TRAIN_STEPS, B, S)
+    if lossB != gemma["losses"] or not tree_equal(pA, pB) or not (
+            tree_equal(sA, sB)):
+        raise AssertionError("gemma3-1b: two runs from one state differ")
+    del pB, sB
+    torch.cuda.empty_cache()
+    print(f"gemma3-1b: a second run of {TRAIN_STEPS} steps gives "
+          "bit-identical losses, parameters and moments")
+    pC, sC, lossC, _ = run_steps(cfg, step, pipe, params,
+                                 adamw.init_opt_state(params), 0,
+                                 TRAIN_SAVE_AFTER, B, S)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        store.save(d, TRAIN_SAVE_AFTER, (pC, sC), codec="raw",
+                   extra={"step": TRAIN_SAVE_AFTER})
+        save_s = time.perf_counter() - t0
+        like = adamw.tree_map(lambda t: t.to("meta"), (pC, sC))
+        t0 = time.perf_counter()
+        del pC, sC
+        torch.cuda.empty_cache()
+        (pC, sC), extra = store.restore(d, like, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del like
+        torch.cuda.empty_cache()
+    pC, sC, lossC2, _ = run_steps(cfg, step, pipe, pC, sC,
+                                  int(extra["step"]),
+                                  TRAIN_STEPS - TRAIN_SAVE_AFTER, B, S)
+    if lossC + lossC2 != gemma["losses"] or not tree_equal(pA, pC) or not (
+            tree_equal(sA, sC)):
+        raise AssertionError("gemma3-1b: the run resumed from its "
+                             f"step-{TRAIN_SAVE_AFTER} checkpoint differs")
+    gemma.update(save_s=save_s, restore_s=restore_s)
+    print(f"gemma3-1b: saved at step {TRAIN_SAVE_AFTER} ({save_s:.1f} s), "
+          f"restored ({restore_s:.1f} s) and continued: bit-identical to the"
+          " uninterrupted run")
+    del pA, sA, pC, sC, params, step
+    torch.cuda.empty_cache()
+
+    # -- 16c: one float32 step against the plain attention's --------------
+    cfg32 = get_config("gemma3-1b").replace(param_dtype="float32",
+                                            activ_dtype="float32")
+    p32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+    B32, S32 = TRAIN_F32_BATCH
+    pipe32 = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg32.vocab_size, seq_len=S32, global_batch=B32, seed=0))
+    batch32 = train_mod.make_batch_for(cfg32, pipe32, 0, B32, S32, dev)
+    zero_counts()
+    loss_k, g_k = steps._loss_and_grads(cfg32, p32, batch32)
+    torch.cuda.synchronize()
+    on_k = read_counts()
+    routes = dict(flash.flash_attention_fwd.launches_by_route)
+    if (on_k["flash"], on_k["flash_bwd"], routes["f32"]) != (
+            2 * cfg32.n_layers, per_call * cfg32.n_layers,
+            2 * cfg32.n_layers):
+        raise AssertionError(f"the float32 step launched {on_k}, {routes}")
+
+    def plain_attention(q, k, v, *, window=0):
+        return attn.naive_attention(q, k, v, causal=True, window=window)
+
+    zero_counts()
+    with mock.patch.object(attn, "flash_attention", plain_attention):
+        loss_p, g_p = steps._loss_and_grads(cfg32, p32, batch32)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError("the plain float32 step launched a kernel")
+    worst = 0.0
+    for (path, a), b in zip(store._paths(g_k), adamw.tree_leaves(g_p)):
+        rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > TRAIN_F32_TOL:
+            raise AssertionError(f"float32 step: {'/'.join(path)} differs by "
+                                 f"{rel:.3g} of its max |gradient|")
+        worst = max(worst, rel)
+    f32_row = dict(batch=[B32, S32], loss_kernel=float(loss_k),
+                   loss_plain=float(loss_p), worst_leaf_rel=worst,
+                   tolerance=TRAIN_F32_TOL)
+    print(f"gemma3-1b float32 step [{B32} x {S32}]: loss {float(loss_k):.6f} "
+          f"with the kernels, {float(loss_p):.6f} with the plain attention; "
+          f"gradients within {worst:.3g} of each leaf's max |gradient| "
+          f"(tolerance {TRAIN_F32_TOL})")
+    del p32, g_k, g_p, batch32
+    torch.cuda.empty_cache()
+
+    # -- 16d: granite-3-8b at GRANITE_TRAIN_LAYERS of 40 layers ------------
+    cfg_g = get_config("granite-3-8b").replace(n_layers=GRANITE_TRAIN_LAYERS)
+    granite, *rest = counted_run(
+        cfg_g, f"granite-3-8b ({GRANITE_TRAIN_LAYERS} of 40 layers)")
+    del rest
+    torch.cuda.empty_cache()
+
+    # -- 16e: the smoke CLI's loss falls -----------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(sys, "argv", ["train", *TRAIN_CLI]):
+        hist = train_mod.main()
+    cli_s = time.perf_counter() - t0
+    on = read_counts()
+    smoke = get_config("gemma3-1b", smoke=True)
+    n_steps = int(TRAIN_CLI[TRAIN_CLI.index("--steps") + 1])
+    want = {"flash": 2 * smoke.n_layers * n_steps,
+            "flash_bwd": per_call * smoke.n_layers * n_steps}
+    if {k: on[k] for k in want} != want:
+        raise AssertionError(f"the smoke CLI launched {on}; want {want}")
+    first, last = np.mean(hist["loss"][:5]), np.mean(hist["loss"][-5:])
+    if not last < first - 0.1:
+        raise AssertionError(f"the smoke CLI's loss fell from {first:.4f} "
+                             f"to {last:.4f}, not by more than 0.1")
+    cli_row = dict(argv=TRAIN_CLI, first5=float(first), last5=float(last),
+                   wall_s=cli_s, launches=on)
+    print(f"python -m repro_torch.launch.train {' '.join(TRAIN_CLI)}: mean "
+          f"loss {first:.4f} over the first 5 steps, {last:.4f} over the "
+          f"last 5 (falls by {first - last:.4f} > 0.1); {cli_s:.1f} s; "
+          f"launches {on}")
+
+    # -- 16f: hybrid and rwkv refuse to train on the card ------------------
+    for arch, item in (("hymba-1.5b", "6.5.2"), ("rwkv6-7b", "6.5.3")):
+        c = get_config(arch, smoke=True)
+        p = T.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
+        b = {"tokens": torch.zeros((2, 16), dtype=torch.long, device=dev)}
+        try:
+            steps.make_train_step(c, adamw.AdamWConfig())(
+                p, adamw.init_opt_state(p), b)
+        except NotImplementedError as e:
+            if f"ROADMAP item {item}" not in str(e):
+                raise
+            print(f"{arch} on the card with grad enabled: "
+                  f"NotImplementedError ({e})")
+        else:
+            raise AssertionError(f"{arch} trained on the card without a "
+                                 "backward kernel")
+
+    row = dict(timing["gemma3-1b window 512"])
+    row.update(window0=timing["gemma3-1b window 0"],
+               shapes={k: v for k, v in timing.items()
+                       if not k.startswith("gemma3-1b")},
+               launches=gemma["launches"]["flash_bwd"],
+               launches_per_step=per_call * cfg.n_layers,
+               max_abs_err=max_err,
+               train=dict(gemma3_1b=gemma, float32_step=f32_row,
+                          granite_3_8b=granite, smoke_cli=cli_row))
+    return dict(bwd=row, fwd_train_launches_per_step=2 * cfg.n_layers)
+
+
 def _tree_to(tree, device):
     """A tree of dicts and lists of tensors, copied to ``device``."""
     if isinstance(tree, dict):
@@ -2803,6 +3271,7 @@ def main() -> int:
                 "rm_int8": rm_kernel.rule_scores_int8,
                 "intersect": intersect.intersect_count_words,
                 "flash": flash.flash_attention_fwd,
+                "flash_bwd": flash.flash_attention_bwd,
                 "scan": scan.selective_scan_fwd,
                 "wkv": wkv.wkv6_fwd}
 
@@ -2825,7 +3294,7 @@ def main() -> int:
     logs = loader.build(["support_count_packed", "support_count_int8",
                          "rule_match_packed", "rule_match_int8",
                          "intersect_count", "flash_attention",
-                         "selective_scan", "wkv6"])
+                         "flash_attention_bwd", "selective_scan", "wkv6"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -3631,7 +4100,18 @@ def main() -> int:
           + json.dumps(fam["family_walls"]))
     timing["flash"].update(fam)
 
-    # ---- 16. result lines ---------------------------------------------
+    # ---- 16. one-card training (gemma3-1b whole, granite-3-8b cut) -----
+    trained = train_phase(torch, np, dev, zero_counts, read_counts)
+    timing["flash_bwd"] = trained["bwd"]
+    launches["flash_bwd"] = timing["flash_bwd"].pop("launches")
+    err["flash_bwd"] = timing["flash_bwd"].pop("max_abs_err")
+    timing["flash"]["train_launches_per_step"] = trained[
+        "fwd_train_launches_per_step"]
+    print(f"training on {_nvidia_smi('name,power.limit')}: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
+         for k, v in timing["flash_bwd"]["train"].items()}))
+
+    # ---- 17. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -3653,6 +4133,9 @@ def main() -> int:
             ("flash", "flash_attention",
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96"),
+            ("flash_bwd", "flash_attention_bwd",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/models/attention.py:98"),
             ("scan", "selective_scan",
              "src/repro_torch/csrc/selective_scan.cu",
              "src/repro/kernels/selective_scan/kernel.py:77"),
@@ -3661,6 +4144,12 @@ def main() -> int:
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))
+        if key == "flash_bwd":
+            rows[-1]["note"] = (
+                "no Pallas backward: the reference differentiates its "
+                "checkpointed chunked attention with jax.value_and_grad; "
+                "this kernel is the gradient of row flash_attention's "
+                "function")
         if rows[-1]["ms"] < 0.01:
             rows[-1]["launch_floor_ms"] = floor_ms
         rows[-1]["apriori_launches"] = clis["apriori_launches"].get(key, 0)

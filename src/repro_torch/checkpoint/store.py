@@ -19,10 +19,12 @@ its ``.old`` name, recovered transparently on read) or the new one.  Stale
 ``.tmp``/``.old`` dirs from a crashed save are wiped on the next write,
 never reused.
 
-Trees are nested dicts, lists and tuples.  A key is the path of its leaf
-joined by ``/`` — dict keys sorted, sequence entries by index, ``None``
-leaves dropped — the keys the reference derives from jax's
-``tree_flatten_with_path``.  Leaves are numpy arrays, Python scalars or
+Trees are nested dicts, lists, tuples and ``NamedTuple`` s.  A key is the
+path of its leaf joined by ``/`` — dict keys sorted, a ``NamedTuple`` 's
+fields as ``.<field>``, other sequence entries by index, ``None`` leaves
+dropped — the keys the reference derives from jax's
+``tree_flatten_with_path`` (so a ``(params, OptState)`` tree keys its
+moments ``1/.mu/...``, as the reference's does).  Leaves are numpy arrays, Python scalars or
 ``torch.Tensor`` s on any device; ``restore`` returns tensors.  The
 payload map is written and read by this module's own msgpack codec, which
 knows exactly one shape: a map of str → bin.
@@ -143,16 +145,28 @@ def msgpack_unpack(blob: bytes) -> Dict[str, bytes]:
 # trees
 # ---------------------------------------------------------------------------
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
+def _children(tree: Any):
+    """(key, child) pairs of a dict (sorted keys), a ``NamedTuple`` (its
+    fields as ``.<field>``, jax's ``GetAttrKey``) or a list or tuple (its
+    indices)."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if _is_namedtuple(tree):
+        return [(f".{f}", v) for f, v in zip(type(tree)._fields, tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
 def _paths(tree: Any, prefix: Tuple[str, ...] = ()):
     """(path, leaf) pairs in the reference's leaf order."""
     if tree is None:
         return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _paths(v, prefix + (str(i),))
+    if isinstance(tree, (dict, list, tuple)):
+        for key, child in _children(tree):
+            yield from _paths(child, prefix + (key,))
     else:
         yield prefix, tree
 
@@ -170,8 +184,10 @@ def _unflatten(like: Any, flat: Dict[str, Any],
         return {k: _unflatten(v, flat, prefix + (str(k),))
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, flat, prefix + (str(i),))
-                          for i, v in enumerate(like))
+        fields = [_unflatten(v, flat, prefix + (key,))
+                  for key, v in _children(like)]
+        return type(like)(*fields) if _is_namedtuple(like) \
+            else type(like)(fields)
     return flat["/".join(prefix)]
 
 

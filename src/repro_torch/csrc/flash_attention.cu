@@ -58,6 +58,12 @@
 // float32 (the comparisons' exact twin): CUDA cores, exact float32
 //   products.
 //
+// lse (optional, null on the serving path): each row's log-normaliser
+// log sum_j exp(scale * s_ij) over its live keys, float32 [B, H, S], which
+// the backward kernel (flash_attention_bwd.cu) recomputes P from.  Each
+// route writes it from its final running max m and sum l, one thread a
+// row, after the output.
+//
 // NEG_INF is -1e30, not -inf, as in the TPU kernel: a row with no live
 // key in its first tile then holds m = -1e30 and, on the mma.sync and
 // float32 routes, p = 1 for a while (p = 0 on the Hopper route), and the
@@ -312,7 +318,8 @@ __global__ void __launch_bounds__(HopperTile<HD>::kThreads, 1)
 flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_k,
                               const __grid_constant__ CUtensorMap tm_v,
-                              __nv_bfloat16* __restrict__ out, int S, int H,
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ lse, int S, int H,
                               int KV, int window, float scale_log2) {
   constexpr int BK = HopperTile<HD>::BK;
   constexpr int kStages = HopperTile<HD>::kStages;
@@ -518,6 +525,11 @@ flash_attention_hopper_kernel(const __grid_constant__ CUtensorMap tm_q,
           *reinterpret_cast<uint32_t*>(dst + 8 * j) =
               pack_pair(o[4 * j + 2 * half] * inv,
                         o[4 * j + 2 * half + 1] * inv);
+        // m is in unscaled scores and l sums exp2((s - m) * scale_log2),
+        // so ln(sum exp(scale * s)) = (m * scale_log2 + log2(l)) * ln 2
+        if (lse != nullptr && pair == 0)
+          lse[(static_cast<size_t>(b) * H + h) * S + qi] =
+              (m[half] * scale_log2 + log2f(l[half])) * 0.6931471805599453f;
       }
     }
   }
@@ -571,8 +583,9 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int S, int H,
-                           int KV, int window, float scale) {
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, int S, int H, int KV,
+                           int window, float scale) {
   constexpr int kQP = HD + 8;          // Q and K row pitch (elements)
   constexpr int kVP = BK + 8;          // transposed V row pitch
   constexpr int kNT = BK / 8;          // 8-key tiles of S
@@ -725,6 +738,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int dt = 0; dt < kDT; ++dt)
         *reinterpret_cast<uint32_t*>(ob + qi * q_pitch + dt * 8 + 2 * pair) =
             pack_pair(o[dt][2 * half] / denom, o[dt][2 * half + 1] / denom);
+      if (lse != nullptr && pair == 0)           // m is in scaled scores
+        lse[static_cast<size_t>(blockIdx.y) * S + qi] = m[half] + logf(denom);
     }
   }
 }
@@ -769,7 +784,8 @@ __global__ void __launch_bounds__(kF32Threads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
-                           float* __restrict__ out, int S, int H, int KV,
+                           float* __restrict__ out,
+                           float* __restrict__ lse, int S, int H, int KV,
                            int window, float scale) {
   constexpr int kQP = HD + 1;          // Q and K row pitch (odd)
   constexpr int kPP = BK + 1;          // P row pitch
@@ -889,6 +905,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < kDC; ++j)
         ob[qi * q_pitch + tx + 16 * j] = acc[r][j] / denom;
+      if (lse != nullptr && tx == 0)             // m is in scaled scores
+        lse[static_cast<size_t>(blockIdx.y) * S + qi] = m[r] + logf(denom);
     }
   }
 }
@@ -902,6 +920,7 @@ struct Args {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, S, H, KV, window;
   float scale;
   cudaStream_t stream;
@@ -945,8 +964,8 @@ int launch_hopper(const Args& a) {
   const dim3 grid(a.B * a.H, (a.S + kBQ - 1) / kBQ);
   constexpr int threads = HopperTile<HD>::kThreads;
   flash_attention_hopper_kernel<HD><<<grid, threads, smem, a.stream>>>(
-          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.out), a.S, a.H,
-          a.KV, a.window, a.scale * 1.4426950408889634f);
+          tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(a.out), a.lse, a.S,
+          a.H, a.KV, a.window, a.scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -962,7 +981,8 @@ int launch_mma(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.KV, a.window, a.scale);
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.S, a.H, a.KV, a.window,
+      a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,8 +996,8 @@ int launch_f32(const Args& a) {
   const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.H);
   flash_attention_f32_kernel<HD, BK><<<grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.S, a.H,
-      a.KV, a.window, a.scale);
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.S,
+      a.H, a.KV, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -985,16 +1005,17 @@ int launch_f32(const Args& a) {
 
 // q, out: [B, S, H, hd]; k, v: [B, S, KV, hd]; all contiguous, one dtype
 // (is_bf16 ? bf16, 16-byte aligned : float32); H % KV == 0; hd in
-// {16, 32, 64, 128, 256}.  The route (kernel/flash_attention/kernel.py's
+// {16, 32, 64, 128, 256}; lse: null, or float32 [B, H, S] to receive each
+// row's log-normaliser.  The route (kernel/flash_attention/kernel.py's
 // route()): bf16 at hd 64-256 the Hopper kernel, bf16 at hd 16-32 the
 // mma.sync kernel, float32 the CUDA-core kernel.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int H, int KV, int hd, int window,
-                                      float scale, int is_bf16,
+                                      const void* v, void* out, void* lse,
+                                      int B, int S, int H, int KV, int hd,
+                                      int window, float scale, int is_bf16,
                                       void* stream) {
-  const Args a{q, k, v, out, B, S, H, KV, window, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, out, static_cast<float*>(lse), B, S, H, KV, window,
+               scale, static_cast<cudaStream_t>(stream)};
   if (is_bf16) {
     switch (hd) {
       case 16: return launch_mma<16, 64>(a);

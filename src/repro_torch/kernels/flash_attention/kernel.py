@@ -1,5 +1,6 @@
-"""Causal GQA flash attention (forward): the wrapper of the hand-written
-Hopper kernel ``csrc/flash_attention.cu``.
+"""Causal GQA flash attention: the wrappers of the hand-written Hopper
+kernels ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (backward).
 
 Replaces the reference's ``flash_attention_pallas``
 (``repro/kernels/flash_attention/kernel.py``).  The kernel reads q, k and v
@@ -13,6 +14,14 @@ TMA into a ring of shared-memory stages, a producer thread, ``wgmma`` for
 both products), ``"mma"`` (bf16 at hd 16 and 32: ``mma.sync``) or
 ``"f32"`` (float32: exact products on the CUDA cores).  See the source for
 the design.
+
+The forward can also write each row's log-normaliser ``lse`` [B, H, S]
+(float32), which :func:`flash_attention_bwd` recomputes P from.  The
+reference has no Pallas backward (it differentiates its plain attention);
+the backward kernel is the gradient of this kernel's function: three
+passes (D = rowsum(dO ∘ O); dK and dV a KV tile at a time; dQ a query
+tile at a time), bf16 on the tensor cores (``mma.sync``), float32 on the
+CUDA cores, with no atomics, so repeats are bit-identical.
 """
 from __future__ import annotations
 
@@ -23,23 +32,38 @@ import math
 import torch
 
 from repro_torch.kernels import loader
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref,
+                                                     flash_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 HOPPER_HEAD_DIMS = (64, 128, 256)   # bf16 head sizes of the wgmma kernel
 DTYPES = (torch.bfloat16, torch.float32)
 ROUTES = ("hopper", "mma", "f32")
 MAX_GRID_Y = 65_535          # blocks along b·h
+BWD_LAUNCHES_PER_CALL = 3    # the backward's D, dK/dV and dQ passes
 
-# the kernel's function as plain tensor ops: the oracle's arithmetic
+# the kernels' functions as plain tensor ops: the oracles' arithmetic
 flash_attention_plain = flash_attention_ref
+flash_attention_lse_plain = flash_attention_lse_ref
+flash_attention_bwd_plain = flash_attention_bwd_ref
 
 
 @functools.cache
 def _launcher():
     lib = loader.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _bwd_launcher():
+    lib = loader.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
@@ -78,18 +102,31 @@ def _check_inputs(q, k, v, window):
         raise TypeError(f"window must be a Python int, got {window!r}")
 
 
+def _check_card(named):
+    """The card path's preconditions on (name, tensor) pairs."""
+    for name, x in named:
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = 0) -> torch.Tensor:
+                        *, window: int = 0, return_lse: bool = False):
     """Causal attention ``[B, S, H, hd]`` of q [B, S, H, hd] over k, v
     [B, S, KV, hd], keys kept where ``kj <= qi`` and, for ``window > 0``,
-    ``kj > qi - window``.  A CUDA tensor goes through the kernel
-    (contiguous, 16-byte aligned inputs), a CPU tensor through the plain
-    version.  Each launch adds one to ``flash_attention_fwd.launches`` and
-    to its :func:`route`'s count in ``.launches_by_route``.
+    ``kj > qi - window``; with ``return_lse`` also each row's
+    log-normaliser ``lse`` [B, H, S] (float32), as ``(out, lse)``.  A CUDA
+    tensor goes through the kernel (contiguous, 16-byte aligned inputs), a
+    CPU tensor through the plain version.  Each launch adds one to
+    ``flash_attention_fwd.launches`` and to its :func:`route`'s count in
+    ``.launches_by_route``.
     """
     _check_inputs(q, k, v, window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window)
+        out = flash_attention_plain(q, k, v, window=window)
+        if return_lse:
+            return out, flash_attention_lse_plain(q, k, window=window)
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
     B, S, H, hd = q.shape
@@ -97,29 +134,81 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H > MAX_GRID_Y:
         raise ValueError(f"B*H = {B * H} blocks exceed the grid's "
                          f"{MAX_GRID_Y}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             "aligned")
+    _check_card((("q", q), ("k", k), ("v", v)))
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib, fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  B, S, H, KV, hd, max(window, 0), 1.0 / math.sqrt(hd),
                  int(q.dtype == torch.bfloat16), stream)
     loader.check(lib, err, "flash_attention launch")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_route[route(q.dtype, hd)] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention_fwd`'s function at (q, k, v),
+    given its output ``out``, its ``lse`` [B, H, S] (float32) and the
+    output's gradient ``dout``: each in its input's shape and type.  A CUDA
+    tensor goes through the backward kernel (one call: three launches on
+    the stream, D, then dK and dV, then dQ), a CPU tensor through the plain
+    version.  Each CUDA call adds its ``BWD_LAUNCHES_PER_CALL`` launches to
+    ``flash_attention_bwd.launches``.
+    """
+    _check_inputs(q, k, v, window)
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device} is not q's {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}")
+    if (tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} is not "
+                         f"float32 [B, H, S] = {(B, H, S)} on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention_bwd kernel for {q.device}")
+    if max(B * H, B * KV) > MAX_GRID_Y:
+        raise ValueError(f"B*H = {B * H} blocks exceed the grid's "
+                         f"{MAX_GRID_Y}")
+    _check_card((("q", q), ("k", k), ("v", v), ("out", out), ("lse", lse),
+                 ("dout", dout)))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    d = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib, fn = _bwd_launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), d.data_ptr(),
+                 B, S, H, KV, hd, max(window, 0), 1.0 / math.sqrt(hd),
+                 int(q.dtype == torch.bfloat16), stream)
+    loader.check(lib, err, "flash_attention_bwd launch")
+    flash_attention_bwd.launches += BWD_LAUNCHES_PER_CALL
+    return dq, dk, dv
 
 
 def zero_launches() -> None:
-    """Set the total and every route's count of launches to 0."""
+    """Set the forward's total and every route's count of launches, and
+    the backward's count, to 0."""
     flash_attention_fwd.launches = 0
     flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches = 0
 
 
 zero_launches()

@@ -29,3 +29,66 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _scores_f32(q, k, window):
+    """Scaled float32 scores [B, H, S, S] from upcast q and k, and the
+    live-key mask [S, S] (the kernels' arithmetic: exact products, float32
+    sums)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf)
+    s = s * (1.0 / math.sqrt(hd))
+    qi = torch.arange(S, device=q.device)[:, None]
+    kj = torch.arange(S, device=q.device)[None, :]
+    mask = kj <= qi
+    if window > 0:
+        mask &= kj > qi - window
+    return s, mask
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            window: int = 0) -> torch.Tensor:
+    """The softmax's log-normaliser ``lse`` [B, H, S] (float32) that the
+    forward kernel writes beside its output: ``log sum_j exp(s_ij)`` over
+    the live keys of the scaled scores."""
+    s, mask = _scores_f32(q, k, window)
+    return torch.logsumexp(torch.where(mask[None, None], s, NEG_INF), dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            window: int = 0):
+    """(dq, dk, dv) of the causal GQA attention above, written out as
+    tensor ops from P recomputed from ``lse``, with no autograd: an oracle
+    independent of the forward's graph.  Every product is float32 on
+    upcast inputs; P enters dV rounded to the input type, as it enters
+    P.V in the forward.  A kv head's dk and dv sum over its H/KV query
+    heads.
+
+        P  = exp(s - lse)            (0 where the key is masked)
+        D  = rowsum(dO ∘ O)
+        dV = P^T dO,  dP = dO V^T,  dS = P ∘ (dP - D)
+        dQ = scale · dS K,  dK = scale · dS^T Q
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    s, mask = _scores_f32(q, k, window)
+    p = torch.where(mask[None, None], torch.exp(s - lse[..., None]), 0.0)
+    do = dout.to(f32)
+    d = (do * out.to(f32)).sum(-1).transpose(1, 2)          # [B, H, S]
+    vf = v.to(f32).repeat_interleave(H // KV, dim=2)
+    kf = k.to(f32).repeat_interleave(H // KV, dim=2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f32)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).to(f32), do)
+    # a kv head's gradient is the sum over its group of query heads
+    dk = dk.reshape(B, S, KV, H // KV, hd).sum(3)
+    dv = dv.reshape(B, S, KV, H // KV, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

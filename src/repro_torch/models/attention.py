@@ -6,9 +6,12 @@ Two plain full-sequence implementations, as in the reference:
 * ``naive``   — materialises the [B, H, S, S] score tensor;
 * ``chunked`` — online softmax over KV chunks, O(S·chunk) memory.
 
-They are the CPU path.  On the card ``attention_full`` runs the hand-written
-flash kernel (``repro_torch.kernels.flash_attention``) for either
-``attention_impl``: all three compute one function.  Decoding one token
+They are the CPU path, which autograd differentiates.  On the card
+``attention_full`` runs the hand-written flash kernel
+(``repro_torch.kernels.flash_attention``) for either ``attention_impl``:
+all three compute one function.  Its entry is differentiable, with the
+hand-written backward kernel as its gradient, so a GQA layer trains on the
+card.  Decoding one token
 against the cache stays plain tensor code, as in the reference.  MLA is
 plain tensor code on either device, by the reference's design: its q/k
 head size (nope + rope, 192 at full width) differs from its v head size
@@ -122,8 +125,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int,
 
 
 def attention_full(q, k, v, cfg, window: int) -> torch.Tensor:
-    """Causal attention over the whole sequence: the flash kernel on the
-    card, the configured plain form on the CPU."""
+    """Causal attention over the whole sequence: the flash kernels (forward,
+    and backward where autograd records) on the card, the configured plain
+    form on the CPU."""
     if q.device.type != "cpu":
         return flash_attention(q, k, v, window=window)
     if cfg.attention_impl == "chunked":
@@ -151,7 +155,7 @@ def gqa_forward(p: Params, cfg, x: torch.Tensor, window: int,
         raise NotImplementedError(
             "sequence_parallel shards a mesh axis; the meshes and "
             "collectives it needs (distributed/meshes.py) are ROADMAP "
-            "item 6.5")
+            "item 6.5.1")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]

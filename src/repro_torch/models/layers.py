@@ -4,7 +4,8 @@ Parameters are nested dicts of tensors, in the reference's tree layout.
 Initializers take an explicit ``torch.Generator`` and device and return
 such dicts; apply functions are pure.  The numeric conventions are the
 reference's: parameters in ``cfg.param_dtype``, normalisation and RoPE
-computed in float32 and cast back.
+computed in float32 and cast back.  The losses take float32 math over
+logits of any type.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -103,3 +105,71 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["w_gate"])
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits [..., V] in any float dtype (float32
+    math)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _vocab_chunk(x: torch.Tensor, wc: torch.Tensor, labels: torch.Tensor,
+                 lo: int, m: torch.Tensor, s: torch.Tensor,
+                 ll: torch.Tensor):
+    """One vocab chunk of :func:`chunked_softmax_xent`: the running max,
+    sum and label logit after the chunk's [T, chunk] logits."""
+    chunk = wc.shape[0]
+    logits = (x @ wc.T).to(torch.float32)                  # [T, chunk]
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[:, None]).sum(-1)
+    local = labels - lo
+    in_chunk = (local >= 0) & (local < chunk)
+    picked = torch.gather(logits, 1,
+                          torch.clamp(local, 0, chunk - 1)[:, None])[:, 0]
+    return m_new, s, torch.where(in_chunk, picked, ll)
+
+
+def chunked_softmax_xent(x: torch.Tensor, embed: torch.Tensor,
+                         labels: torch.Tensor, chunk: int,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Cross-entropy without materialising [tokens, V] logits.
+
+    Walks the vocab in chunks with a running logsumexp, picking the label
+    logit on the way.  x: [T, d] final hidden states, embed: [V, d] (the
+    unembedding), labels: [T].  Each chunk runs under
+    ``torch.utils.checkpoint``, as the reference's scan body runs under
+    ``jax.checkpoint``: backward recomputes the chunk's [T, chunk] logits,
+    so no [T, V] set of tiles is kept for it.
+    """
+    T_, d = x.shape
+    V = embed.shape[0]
+    if V % chunk:
+        raise ValueError(f"vocab {V} is not a multiple of the chunk {chunk}")
+    labels = labels.long()
+    m = torch.full((T_,), -math.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((T_,), dtype=torch.float32, device=x.device)
+    ll = torch.zeros((T_,), dtype=torch.float32, device=x.device)
+    for i in range(V // chunk):
+        m, s, ll = checkpoint(_vocab_chunk, x,
+                              embed[i * chunk:(i + 1) * chunk], labels,
+                              i * chunk, m, s, ll, use_reentrant=False)
+    nll = (m + torch.log(s)) - ll
+    if mask is not None:
+        maskf = mask.to(torch.float32)
+        return torch.sum(nll * maskf) / torch.clamp(torch.sum(maskf),
+                                                    min=1.0)
+    return torch.mean(nll)

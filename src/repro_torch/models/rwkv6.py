@@ -151,6 +151,11 @@ def rwkv_time_forward(p: Params, cfg, x: torch.Tensor,
                          f"(known: {TIME_MIX_IMPLS})")
     r, k, v, w, g, s0 = time_mix_inputs(p, cfg, x, state)
     if x.shape[1] > 1:
+        if (x.device.type == "cuda" and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (r, k, v, w, p["u"], s0))):
+            raise NotImplementedError(
+                "the wkv6 kernel has no backward yet: training rwkv6-7b on "
+                "the card is ROADMAP item 6.5.3 (a wkv6 backward kernel)")
         y, s_last = wkv6(r, k, v, w, p["u"], s0)
     else:
         y, s_last = _wkv_scan(r, k, v, w, p["u"], s0)

@@ -77,6 +77,12 @@ def _selective_scan(u, dt, A, B, C, D, h0=None, impl: str = "scan"):
         h = a[:, 0] * h0.to(f32) + b[:, 0]
         y = torch.einsum("bdn,bn->bd", h, C[:, 0].to(f32))[:, None]
     else:
+        if (a.device.type == "cuda" and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (a, b, C, h0))):
+            raise NotImplementedError(
+                "the selective-scan kernel has no backward yet: training "
+                "hymba-1.5b on the card is ROADMAP item 6.5.2 (a "
+                "selective_scan backward kernel)")
         y, h = selective_scan(a, b, C, h0)
     return y + D[None, None] * u.to(f32), h
 

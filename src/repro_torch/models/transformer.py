@@ -17,12 +17,24 @@ Python-int window per layer.  Block types:
 Frontends (:mod:`repro_torch.models.stubs`): ``audio`` reads frame
 embeddings and predicts every codebook, ``vision`` prepends projected
 patch embeddings to the text.
+
+Training: :func:`model_loss` is the reference's mean next-token
+cross-entropy (plus the MoE aux loss), differentiated by autograd.  On
+the card a GQA layer's attention is the flash kernels' differentiable
+entry (forward and backward kernels); a ``hybrid`` or ``rwkv`` block
+raises there while autograd records, since its scan kernel has no
+backward yet.  ``cfg.remat_policy`` maps the reference's
+``jax.checkpoint`` of each stacked layer onto ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -30,8 +42,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stubs
-from repro_torch.models.layers import (Params, dtype_of, embed_init, mlp,
-                                       mlp_init, rmsnorm, rmsnorm_init)
+from repro_torch.models.layers import (Params, chunked_softmax_xent,
+                                       dtype_of, embed_init, mlp, mlp_init,
+                                       rmsnorm, rmsnorm_init, softmax_xent)
+
+REMAT_POLICIES = ("none", "full", "dots", "names")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -208,19 +223,51 @@ def _fuse(cfg: ModelConfig, p: Params, a: torch.Tensor,
                   + rmsnorm(p["fuse_ln_s"], s, cfg.rms_eps))
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    with no batch dimension (the projections, ``aten.mm``), recompute the
+    rest (the attention and expert products, ``aten.bmm``, included)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig):
+    """How a stacked layer runs under ``cfg.remat_policy`` while autograd
+    records: ``none`` as it is; ``full`` under a per-layer
+    ``torch.utils.checkpoint`` (backward re-runs the layer, the flash
+    forward kernel included); ``dots`` under a selective checkpoint that
+    keeps the ``aten.mm`` outputs; ``names`` as ``full``, since the one
+    name the reference saves, ``block_out``, is the layer's output, which
+    the next layer's checkpoint keeps as its input."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"(known: {REMAT_POLICIES})")
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return lambda fn, *args: fn(*args)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor | float]:
     """Embeddings -> final hidden states.  x: [B, S, d].  The leading
-    dense layers run first, then the stacked ones; the aux loss sums the
-    stacked layers' (as the reference's scan does)."""
+    dense layers run first, then the stacked ones, each under
+    ``cfg.remat_policy`` (as the reference checkpoints its scan body, not
+    the dense layers); the aux loss sums the stacked layers' (as the
+    reference's scan does).  Every policy gives the same numbers."""
     check_supported(cfg)
     windows = attn.layer_windows(cfg)
     n_dense = _n_dense(cfg)
     for i in range(n_dense):
         x, _ = _block_full(cfg, params["dense_layers"][i], x, windows[i])
+    run = _remat(cfg)
     aux = 0.0
     for i, w in enumerate(windows[n_dense:]):
-        x, a = _block_full(cfg, _layer(params["layers"], i), x, w)
+        x, a = run(_block_full, cfg, _layer(params["layers"], i), x, w)
         aux = aux + a
     return rmsnorm(params["final_ln"], x, cfg.rms_eps), aux
 
@@ -237,7 +284,10 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     check_supported(cfg)
     if cfg.frontend == "audio":
         return batch["frames"].to(dtype_of(cfg.activ_dtype))
-    x = params["embed"][batch["tokens"]]
+    # the reference's params["embed"][tokens]; F.embedding's backward sums
+    # repeated tokens in a fixed order on the card (indexing's scatters
+    # with atomics)
+    x = F.embedding(batch["tokens"], params["embed"])
     if cfg.frontend == "vision":
         x = stubs.vision_prepend(params["vision"],
                                  batch["vision_embeds"].to(x.dtype), x)
@@ -254,6 +304,37 @@ def _logits(params: Params, cfg: ModelConfig,
     if cfg.frontend == "audio":
         return stubs.audio_logits(params["audio"], h[:, None])[:, 0]
     return h @ _unembed_matrix(params, cfg).T
+
+
+def model_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy (+ MoE aux), a float32 scalar.
+
+    ``batch`` as :func:`embed_inputs` reads it; audio also takes
+    ``labels`` [B, S, K] and predicts every codebook of position t + 1
+    from t; vision predicts every text token from the position before it
+    (the last patch for the first).  ``cfg.vocab_loss_chunk`` > 0 takes
+    the chunked loss, which never holds [tokens, V] logits."""
+    x = embed_inputs(params, cfg, batch)
+    h, aux = forward_hidden(params, cfg, x)
+    if cfg.frontend == "audio":
+        logits = stubs.audio_logits(params["audio"], h[:, :-1])
+        return softmax_xent(logits, batch["labels"][:, 1:]) + aux
+    if cfg.frontend == "vision":
+        h_pred = h[:, cfg.n_vision_tokens - 1:-1]
+        labels = batch["tokens"]
+    else:
+        h_pred = h[:, :-1]
+        labels = batch["tokens"][:, 1:]
+    w = _unembed_matrix(params, cfg)
+    B, S, d = h_pred.shape
+    if cfg.vocab_loss_chunk:
+        loss = chunked_softmax_xent(h_pred.reshape(B * S, d), w,
+                                    labels.reshape(B * S),
+                                    cfg.vocab_loss_chunk)
+    else:
+        loss = softmax_xent(h_pred @ w.T, labels)
+    return loss + aux
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]

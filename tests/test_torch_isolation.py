@@ -159,6 +159,14 @@ for arch in ("granite-3-8b", "dbrx-132b", "deepseek-v2-236b",
     assert bool(logits.isfinite().all())
     out = serve_demo(arch, batch=2, prompt_len=4, new_tokens=2, device="cpu")
     print("FAMILY", arch, tuple(logits.shape), out["tokens"].shape)
+from repro_torch.launch.train import train
+with tempfile.TemporaryDirectory() as wd:
+    hist = train("gemma3-1b", steps=3, batch=2, seq=16, device="cpu",
+                 ckpt_dir=wd + "/ck", ckpt_every=2, log_every=100)
+    resumed = train("granite-3-8b", steps=2, batch=2, seq=16, device="cpu",
+                    ckpt_dir=wd + "/ck2", ckpt_every=1, log_every=100)
+print("TRAINED", len(hist["loss"]), bool(np.isfinite(hist["loss"]).all()),
+      len(resumed["loss"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
              and sys.modules[m] is not None)
@@ -190,6 +198,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "STREAM CLI 128" in out.stdout
     assert "AUTOTUNE 3 ['roofline']" in out.stdout
     assert "CLIS 3 64 64" in out.stdout
+    assert "TRAINED 3 True 2" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"

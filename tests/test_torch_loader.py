@@ -13,6 +13,7 @@ from repro_torch.kernels import loader  # noqa: E402
 # each source and the headers it includes, directly or through another
 INCLUDES = {
     "flash_attention": {"sm90.cuh"},
+    "flash_attention_bwd": set(),
     "wkv6": {"sm90.cuh"},
     "support_count_int8": {"support_count_wgmma.cuh", "sm90.cuh"},
     "support_count_packed": {"support_count_wgmma.cuh", "sm90.cuh"},

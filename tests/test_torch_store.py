@@ -387,3 +387,65 @@ def _numpy_like(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_numpy_like(v) for v in tree)
     return np.zeros(tuple(tree.shape))
+
+
+def _train_state():
+    """A smoke model's parameters with the trainer's ``OptState`` (a
+    ``NamedTuple`` of float32 moments and an int32 step), and the same
+    state in the reference's types (moment values set apart)."""
+    from repro.optim.adamw import OptState as RefOptState
+    from repro_torch.optim.adamw import OptState, init_opt_state, tree_map
+    import jax
+    params, _ = small_state()
+    state = init_opt_state(params)
+    state = OptState(tree_map(lambda m: m + 0.25, state.mu),
+                     tree_map(lambda n: n + 0.5, state.nu),
+                     torch.tensor(9, dtype=torch.int32))
+
+    def to_jnp(t):
+        a = t.to(torch.float32).numpy()
+        return jnp.asarray(a, jnp.bfloat16 if t.dtype == torch.bfloat16
+                           else a.dtype)
+    ref_params = jax.tree.map(to_jnp, params, is_leaf=torch.is_tensor)
+    ref_state = RefOptState(
+        *(jax.tree.map(to_jnp, t, is_leaf=torch.is_tensor)
+          for t in (state.mu, state.nu)), jnp.int32(9))
+    return (params, state), (ref_params, ref_state)
+
+
+def test_train_state_roundtrips_under_the_references_keys(tmp_path):
+    """A (params, OptState) tree round-trips bit for bit, comes back as an
+    ``OptState``, and its keys are the reference's ``_flatten`` keys
+    (``1/.mu/...``, ``1/.nu/...``, ``1/.step``)."""
+    (params, state), (ref_params, ref_state) = _train_state()
+    store.save(str(tmp_path), 3, (params, state), codec="raw")
+    (p2, s2), _ = store.restore(str(tmp_path), (params, state))
+    assert type(s2) is type(state) and s2._fields == ("mu", "nu", "step")
+    for a, b in zip(_leaves((params, state)), _leaves((p2, s2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert s2.step.dtype == torch.int32 and int(s2.step) == 9
+    keys = set(store._flatten((params, state)))
+    want, _ = ref_store._flatten((ref_params, ref_state))
+    assert keys == set(want)
+    assert {"1/.step", "1/.mu/embed", "1/.nu/final_ln/scale"} <= keys
+    # plain tuples and lists keep their index keys
+    assert set(store._flatten((1, [2, (3,)]))) == {"0", "1/0", "1/1/0"}
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_train_state_crosses_between_the_packages(tmp_path, writer):
+    (params, state), (ref_params, ref_state) = _train_state()
+    d = str(tmp_path)
+    if writer == "reference":
+        ref_store.save(d, 4, (ref_params, ref_state), extra={"step": 4})
+    else:
+        store.save(d, 4, (params, state), extra={"step": 4})
+    (p2, s2), extra = store.restore(d, (params, state))
+    assert extra == {"step": 4} and isinstance(s2, type(state))
+    for a, b in zip(_leaves((params, state)), _leaves((p2, s2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    (rp, rs), extra = ref_store.restore(d, (ref_params, ref_state))
+    assert type(rs).__name__ == "OptState" and int(rs.step) == 9
+    for a, b in zip(_leaves((params, state)), _leaves((rp, rs))):
+        np.testing.assert_array_equal(a.to(torch.float32).numpy(),
+                                      np.asarray(b, np.float32))

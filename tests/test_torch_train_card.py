@@ -1,0 +1,160 @@
+"""One-card training on the card: the flash backward kernel against its
+plain version, and the launches a train step makes.
+
+These tests need an NVIDIA card (marked ``cuda``; each skips where none is
+present) and import neither jax nor the reference:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_card.py
+
+Inputs are drawn with numpy from a seed.  The backward kernel runs bf16
+on the tensor cores (``mma.sync``, P and dS rounded to bf16 as they enter
+the products) and float32 on the CUDA cores, the plain version in float32
+throughout, so the gate is a tile-sized block's: each block of 64 rows (n
+elements) of each batch row and head within rtol·||plain|| + atol·√n,
+(1e-5, 1e-7) in float32 and (1e-2, 1e-5) in bf16, with the plain backward
+fed the plain forward's output and ``lse``.  ``lse`` itself is held
+within 1e-5 relative and absolute.  Nothing here changes process-wide state: each
+model draws from its own generator.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+
+TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (1e-2, 1e-5)}
+
+
+def _block_err(got, want, dtype, rows=64):
+    """The largest ||got - want|| / (rtol·||want|| + atol·√n) over blocks
+    of ``rows`` sequence rows (n elements) of each batch row and head: at
+    most 1 where every block is within ``TOL[dtype]``."""
+    rtol, atol = TOL[dtype]
+    B, S, Hh, hd = want.shape
+    n = -(-S // rows)
+    x = want.float().new_zeros((2, B, n * rows, Hh, hd))
+    x[0, :, :S] = got.float() - want.float()
+    x[1, :, :S] = want.float()
+    d, w = x.reshape(2, B, n, rows, Hh, hd).square().sum((3, 5)).sqrt()
+    return float((d / (rtol * w + atol * (rows * hd) ** 0.5)).max())
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, B, S, H, KV, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+                dtype).to(dev)
+            for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd),
+                      (B, S, H, hd))]
+
+
+# every head size, GQA groups of 1-5, windows, ragged S across the tiles
+CASES = [(2, 77, 4, 1, 16, 0), (1, 130, 4, 2, 32, 9), (1, 200, 8, 2, 64, 0),
+         (1, 129, 4, 4, 128, 40), (1, 100, 4, 1, 256, 0),
+         (1, 300, 4, 1, 256, 64), (1, 1, 4, 1, 64, 0), (1, 96, 25, 5, 64, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,win", CASES)
+def test_backward_kernel_matches_plain_version(card, B, S, H, KV, hd, win,
+                                               dtype):
+    q, k, v, g = _inputs(card, B, S, H, KV, hd, dtype, S + hd + win)
+    out, lse = kernel.flash_attention_fwd(q, k, v, window=win,
+                                          return_lse=True)
+    lse_p = kernel.flash_attention_lse_plain(q, k, window=win)
+    out_p = kernel.flash_attention_plain(q, k, v, window=win)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    assert _block_err(out, out_p, dtype) <= 1
+    launches = kernel.flash_attention_bwd.launches
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
+    again = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
+    assert kernel.flash_attention_bwd.launches == \
+        launches + 2 * kernel.BWD_LAUNCHES_PER_CALL
+    want = kernel.flash_attention_bwd_plain(q, k, v, out_p, lse_p, g,
+                                            window=win)
+    torch.cuda.synchronize()
+    for name, a, b, w in zip("qkv", got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b), f"d{name} differs between repeats"
+        err = _block_err(a, w, dtype)
+        assert err <= 1, (name, err)
+
+
+@pytest.mark.cuda
+def test_function_runs_both_kernels(card):
+    q, k, v, g = _inputs(card, 2, 64, 4, 1, 64, torch.bfloat16, 0)
+    held = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kernel.zero_launches()
+    out = ops.flash_attention(*held, window=16)
+    assert kernel.flash_attention_fwd.launches == 1
+    grads = torch.autograd.grad(out, held, g)
+    assert kernel.flash_attention_bwd.launches == kernel.BWD_LAUNCHES_PER_CALL
+    lse = kernel.flash_attention_lse_plain(q, k, window=16)
+    out_p = kernel.flash_attention_plain(q, k, v, window=16)
+    want = kernel.flash_attention_bwd_plain(q, k, v, out_p, lse, g,
+                                            window=16)
+    for a, w in zip(grads, want):
+        err = _block_err(a, w, torch.bfloat16)
+        assert err <= 1, err
+    with torch.no_grad():
+        assert ops.flash_attention(*held, window=16).grad_fn is None
+    assert kernel.flash_attention_bwd.launches == kernel.BWD_LAUNCHES_PER_CALL
+
+
+def _smoke(arch, dev, **change):
+    cfg = get_config(arch, smoke=True).replace(**change)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (4, 64))).to(dev)}
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,fwd_per_layer", [("full", 2), ("dots", 2),
+                                                  ("none", 1)])
+def test_train_step_launches_and_repeats(card, policy, fwd_per_layer):
+    """A gemma3-1b smoke step: one forward launch a layer (two under
+    recomputing policies), one backward call (three launches) a layer, and
+    two runs from the same state give bit-identical parameters."""
+    cfg, params, batch = _smoke("gemma3-1b", card, remat_policy=policy)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    runs = []
+    for _ in range(2):
+        p = adamw.tree_map(torch.clone, params)
+        kernel.zero_launches()
+        p, s, m = step(p, adamw.init_opt_state(p), batch)
+        torch.cuda.synchronize()
+        assert kernel.flash_attention_fwd.launches == \
+            fwd_per_layer * cfg.n_layers
+        assert kernel.flash_attention_bwd.launches == \
+            kernel.BWD_LAUNCHES_PER_CALL * cfg.n_layers
+        assert np.isfinite(float(m["loss"]))
+        runs.append(p)
+    for a, b in zip(adamw.tree_leaves(runs[0]), adamw.tree_leaves(runs[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "6.5.2"),
+                                       ("rwkv6-7b", "6.5.3")])
+def test_recurrent_blocks_refuse_to_train_on_the_card(card, arch, item):
+    cfg, params, batch = _smoke(arch, card)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig())
+    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        step(params, adamw.init_opt_state(params), batch)
+    with torch.no_grad():            # serving still runs the kernels
+        T.prefill(params, cfg, batch)
