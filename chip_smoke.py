@@ -238,17 +238,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     training shapes ``TRAIN_BWD_CASES`` (gemma3-1b [4, 2048, 4/1, 256] at
     windows 512 and 0, [4, 2048, 32/8, 128], [4, 2048, 32/32, 64]), and
     time it in bf16 beside its plain version, SDPA's backward and its
-    bound (operations: 10·B·H·hd·live keys flops at the bf16 peak); draw
+    bound (operations: 10·B·H·hd·live keys flops at the bf16 peak), each
+    of its three kernels (``BWD_PASSES``) timed from a ``torch.profiler``
+    trace of ``BWD_TRACE_CALLS`` calls in a fresh process; draw
     gemma3-1b whole at full width (bf16, ``remat_policy="full"``) and run
     ``TRAIN_STEPS`` steps of ``make_train_step`` on [4 x 2048] batches of
     the token pipeline, requiring exactly 2 flash forward launches a layer
     a step (one recomputed in backward), all on the Hopper route, one
-    backward call (three launches) a layer a step and no other kernel,
-    printing step walls,
+    backward call (three launches) a layer a step, all on the backward's
+    Hopper route, and no other kernel, printing step walls,
     tokens/s and peak memory; repeat the run and require bit-identical
     losses, parameters and moments; run ``TRAIN_SAVE_AFTER`` step, save
     through the store, restore and continue, and require the
-    uninterrupted run's bits; one float32 step's gradients at [2 x 2048]
+    uninterrupted run's bits; trace one more step with ``torch.profiler``
+    and print its device time by kernel, the flash backward's share among
+    them; one float32 step's gradients at [2 x 2048]
     against the same step with the plain attention on the card, each leaf
     within ``TRAIN_F32_TOL`` of its max |gradient|; granite-3-8b at
     ``GRANITE_TRAIN_LAYERS`` of its 40 layers for ``TRAIN_STEPS`` steps with
@@ -377,6 +381,12 @@ TRAIN_BWD_CASES = [("gemma3-1b", 4, 2048, 4, 1, 256, 512),
                    ("granite-3-8b", 4, 2048, 32, 8, 128, 0),
                    ("musicgen-large", 4, 2048, 32, 32, 64, 0)]
 BWD_GATE_ROWS = 64
+# the backward's three bf16 kernels at hd 64-256, by name in a trace, and
+# the calls a per-kernel trace averages over
+BWD_PASSES = {"flash_bwd_dot_kernel": "D",
+              "flash_bwd_dkdv_hopper_kernel": "dK/dV",
+              "flash_bwd_dq_hopper_kernel": "dQ"}
+BWD_TRACE_CALLS = 5
 BWD_GATE = {"float32": (1e-5, 1e-7), "bfloat16": (1e-2, 1e-5)}
 LSE_TOL = 1e-5
 TRAIN_BATCH = (4, 2048)
@@ -2279,6 +2289,90 @@ def sharded_phase(torch, np, dev, T_all, packed, walls, floor_ms,
     return out
 
 
+def _kernel_name(name: str) -> str:
+    """A trace's kernel name without its template arguments and
+    parameters: "void (anonymous namespace)::name<...>(...)" -> "name"."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.removeprefix("void ").split("<")[0].split("(")[0]
+
+
+def _kernel_ms(torch, fn, calls: int = 5) -> dict:
+    """Device time by kernel name of one call of ``fn``, from a
+    ``torch.profiler`` trace of ``calls`` calls after a warm-up: {name: ms
+    a call}, each name's launches summed; empty where the trace holds no
+    kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = _kernel_name(e["name"])
+            out[name] = out.get(name, 0.0) + float(e["dur"]) / 1e3 / calls
+    return out
+
+
+def bwd_passes(cases) -> dict:
+    """The flash backward's kernels at each bf16 case of ``cases``
+    (``TRAIN_BWD_CASES``' form), timed by name with ``_kernel_ms``: {"<name>
+    window <w>": {"D" | "dK/dV" | "dQ": ms a call}}.  Raises where a trace
+    lacks one of the three Hopper kernels."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for name, B, S, H, KV, hd, w in cases:
+        q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                          (B, S, KV, hd), (B, S, H, hd)))
+        o, lse = flash.flash_attention_fwd(q, k, v, window=w,
+                                           return_lse=True)
+        by_kernel = _kernel_ms(torch, lambda: flash.flash_attention_bwd(
+            q, k, v, o, lse, g, window=w), BWD_TRACE_CALLS)
+        passes = {BWD_PASSES[n]: ms for n, ms in by_kernel.items()
+                  if n in BWD_PASSES}
+        if set(passes) != set(BWD_PASSES.values()):
+            raise AssertionError(f"{name} window {w}: the trace's kernels "
+                                 f"{sorted(by_kernel)} are not the three "
+                                 "Hopper passes")
+        out[f"{name} window {w}"] = passes
+    return out
+
+
+def _bwd_passes_fresh(root: Path) -> dict:
+    """``bwd_passes(TRAIN_BWD_CASES)`` in a fresh Python process.  Late in
+    this long run, an H100's torch.profiler sessions recorded no kernel
+    launched through ctypes (the traced train step, whose torch ops come
+    first, did), while a fresh process records them all."""
+    import os
+
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke as c; "
+            "print(json.dumps(c.bwd_passes(c.TRAIN_BWD_CASES)))")
+    r = subprocess.run([sys.executable, "-c", code, str(root)],
+                       env={**os.environ, "PYTHONPATH": str(root / "src")},
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode:
+        raise AssertionError(f"the backward's per-pass trace failed:\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def trace_busy(path: str, window: str) -> dict:
     """The device's busy share of a ``torch.profiler`` trace over the
     ``window`` range: the union of kernel intervals (and of kernel, copy
@@ -2308,9 +2402,7 @@ def trace_busy(path: str, window: str) -> dict:
     by_name = {}
     for e in events:
         if e.get("cat") == "kernel":
-            # "void (anonymous namespace)::name<...>(...)" -> "name"
-            name = e["name"].replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            name = _kernel_name(e["name"])
             by_name[name] = by_name.get(name, 0) + 1
     return {"window_ms": (t1 - t0) / 1e3,
             "kernel_share": union({"kernel"}) / (t1 - t0),
@@ -2902,7 +2994,9 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     # -- 16a: the backward kernel against its plain version, timed --------
     # The plain backward is fed the plain forward's out and lse, so that
     # the oracle inherits nothing of the kernels; a planted fault (one
-    # tile skipped) must fail the gate that the kernel passes.
+    # tile skipped) must fail the gate that the kernel passes.  Each pass's
+    # device time comes from a fresh process's traces.
+    passes_by_case = _bwd_passes_fresh(Path(__file__).resolve().parent)
     max_err, timing = 0.0, {}
     for name, B, S, H, KV, hd, w in TRAIN_BWD_CASES:
         for dt in (bf16, f32):
@@ -2971,6 +3065,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                     o_s = F.scaled_dot_product_attention(
                         *held, is_causal=True, enable_gqa=True)
                 g_s = g.transpose(1, 2).contiguous()
+                passes = passes_by_case[f"{name} window {w}"]
                 t = dict(
                     ms=_cuda_ms(torch, lambda: flash.flash_attention_bwd(
                         q, k, v, out, lse, g, window=w)),
@@ -2980,7 +3075,8 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                     library_ms=_cuda_ms(torch, lambda: torch.autograd.grad(
                         o_s, held, g_s, retain_graph=True)),
                     bound_ms=bnd[by], bound_by=by, window=w,
-                    shape=[B, S, H, KV, hd], model=name)
+                    shape=[B, S, H, KV, hd], model=name,
+                    passes_ms=passes)
                 print(f"flash_attention_bwd [{B}, {S}, {H}/{KV}, {hd}] "
                       f"window {w} bf16: kernel {t['ms']:.4f} ms, plain "
                       f"{t['plain_ms']:.4f} ms, SDPA backward "
@@ -2988,7 +3084,10 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                       f"ms ({by}; {flops:.3g} flops, {nbytes} bytes): the "
                       f"kernel at {t['ms'] / t['bound_ms']:.1f}x its bound "
                       f"and {t['ms'] / t['library_ms']:.2f}x SDPA's backward"
-                      f" on {smi}")
+                      f" on {smi}; by pass (torch.profiler, "
+                      f"{BWD_TRACE_CALLS} calls): "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  passes.items()))
                 timing[f"{name} window {w}"] = t
                 del held, o_s, g_s
             del q, k, v, g, out, lse
@@ -3043,6 +3142,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                                         TRAIN_STEPS, B, S)
         on = read_counts()
         routes = dict(flash.flash_attention_fwd.launches_by_route)
+        bwd_routes = dict(flash.flash_attention_bwd.launches_by_route)
         peak = torch.cuda.max_memory_allocated(dev)
         want = {"flash": 2 * cfg.n_layers * TRAIN_STEPS,
                 "flash_bwd": per_call * cfg.n_layers * TRAIN_STEPS}
@@ -3052,18 +3152,22 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                                  f"{on}; want {want} and nothing else")
         if routes["hopper"] != want["flash"]:
             raise AssertionError(f"{label}: forward routes {routes}")
+        if bwd_routes["hopper"] != want["flash_bwd"]:
+            raise AssertionError(f"{label}: backward routes {bwd_routes}")
         steady = float(np.median(walls[1:]))
         row = dict(parameters=n, steps=TRAIN_STEPS, batch=[B, S],
                    losses=losses, step_walls_s=walls,
                    tokens_per_s=B * S / steady, peak_gib=peak / 2**30,
-                   launches=on, forward_routes=routes)
+                   launches=on, forward_routes=routes,
+                   backward_routes=bwd_routes)
         print(f"{label} train [{B} x {S}], remat {cfg.remat_policy}: losses "
               f"{[round(x, 4) for x in losses]}, step walls "
               f"{[round(x, 4) for x in walls]} s ({row['tokens_per_s']:.0f} "
               f"tokens/s after the first), peak {row['peak_gib']:.2f} GiB; "
               f"launches {on} (exactly {want['flash']} forward, "
               f"{want['flash'] // 2} of them recomputed, and "
-              f"{want['flash_bwd']} backward, {per_call} a call) on {smi}")
+              f"{want['flash_bwd']} backward, {per_call} a call; backward "
+              f"routes {bwd_routes}) on {smi}")
         return row, params, step, pipe, p, s
 
     # -- 16b: gemma3-1b whole, bf16: counts, repeat, resume ---------------
@@ -3114,7 +3218,28 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     print(f"gemma3-1b: saved at step {TRAIN_SAVE_AFTER} ({save_s:.1f} s), "
           f"restored ({restore_s:.1f} s) and continued: bit-identical to the"
           " uninterrupted run")
-    del pA, sA, pC, sC, params, step
+    # a step from the resumed state under torch.profiler (after one
+    # untraced): its device time by kernel, the flash kernels' part of it
+    batch = train_mod.make_batch_for(cfg, pipe, TRAIN_STEPS, B, S, dev)
+    traced = _kernel_ms(torch, lambda: step(pC, sC, batch), calls=1)
+    steady_ms = float(np.median(gemma["step_walls_s"][1:])) * 1e3
+    if traced:
+        kernel_ms = sum(traced.values())
+        bwd_ms = sum(v for n, v in traced.items() if n in BWD_PASSES)
+        fwd_ms = traced.get("flash_attention_hopper_kernel", 0.0)
+        top = sorted(traced.items(), key=lambda kv: -kv[1])[:6]
+        gemma["traced_step"] = dict(kernel_ms=kernel_ms, flash_bwd_ms=bwd_ms,
+                                    flash_fwd_ms=fwd_ms, top_kernels=top)
+        print(f"gemma3-1b traced step: {kernel_ms:.2f} ms of kernels "
+              f"(untraced step wall {steady_ms:.2f} ms); the flash backward "
+              f"{bwd_ms:.2f} ms ({bwd_ms / kernel_ms:.1%} of the kernels, "
+              f"{bwd_ms / steady_ms:.1%} of the wall), the flash forward "
+              f"{fwd_ms:.2f} ms; the largest: "
+              + ", ".join(f"{n} {v:.2f} ms" for n, v in top))
+    else:
+        gemma["traced_step"] = "not measured"
+        print("gemma3-1b traced step: not measured (no kernel in the trace)")
+    del pA, sA, pC, sC, params, step, batch
     torch.cuda.empty_cache()
 
     # -- 16c: one float32 step against the plain attention's --------------
@@ -3131,10 +3256,13 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     torch.cuda.synchronize()
     on_k = read_counts()
     routes = dict(flash.flash_attention_fwd.launches_by_route)
-    if (on_k["flash"], on_k["flash_bwd"], routes["f32"]) != (
+    bwd_routes = dict(flash.flash_attention_bwd.launches_by_route)
+    if (on_k["flash"], on_k["flash_bwd"], routes["f32"],
+            bwd_routes["f32"]) != (
             2 * cfg32.n_layers, per_call * cfg32.n_layers,
-            2 * cfg32.n_layers):
-        raise AssertionError(f"the float32 step launched {on_k}, {routes}")
+            2 * cfg32.n_layers, per_call * cfg32.n_layers):
+        raise AssertionError(f"the float32 step launched {on_k}, {routes}, "
+                             f"backward {bwd_routes}")
 
     def plain_attention(q, k, v, *, window=0):
         return attn.naive_attention(q, k, v, causal=True, window=window)
@@ -3215,6 +3343,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                shapes={k: v for k, v in timing.items()
                        if not k.startswith("gemma3-1b")},
                launches=gemma["launches"]["flash_bwd"],
+               launches_by_route=gemma["backward_routes"],
                launches_per_step=per_call * cfg.n_layers,
                max_abs_err=max_err,
                train=dict(gemma3_1b=gemma, float32_step=f32_row,

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA and wgmma kernels:
-// flash_attention.cu and wkv6.cu take the mbarrier, fence and tensor-map
-// helpers (with their own 4-d / 3-d TMA loads, descriptors and maps); the
+// the flash attention forward and backward (through attention_sm90.cuh,
+// which adds their 4-d TMA loads, descriptors, maps and bf16 wgmma) and
+// wkv6.cu (with its own 3-d TMA loads and maps) take the mbarrier, fence
+// and tensor-map helpers; the
 // integer wgmma kernels, rule_match_int8.cu and rule_match_packed.cu
 // (through rule_match_wgmma.cuh) and support_count_int8.cu and
 // support_count_packed.cu (through support_count_wgmma.cuh), take all of

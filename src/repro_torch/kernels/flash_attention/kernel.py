@@ -20,8 +20,11 @@ The forward can also write each row's log-normaliser ``lse`` [B, H, S]
 reference has no Pallas backward (it differentiates its plain attention);
 the backward kernel is the gradient of this kernel's function: three
 passes (D = rowsum(dO ∘ O); dK and dV a KV tile at a time; dQ a query
-tile at a time), bf16 on the tensor cores (``mma.sync``), float32 on the
-CUDA cores, with no atomics, so repeats are bit-identical.
+tile at a time), with no atomics, so repeats are bit-identical.
+:func:`bwd_route` names the kernels a backward call takes: ``"hopper"``
+(bf16 at hd 64-256: TMA ring, a producer warp, ``wgmma`` for every
+product), ``"mma"`` (bf16 at hd 16 and 32: ``mma.sync``) or ``"f32"``
+(float32: the CUDA cores).
 """
 from __future__ import annotations
 
@@ -75,6 +78,13 @@ def route(dtype: torch.dtype, hd: int) -> str:
     if dtype == torch.float32:
         return "f32"
     return "hopper" if hd in HOPPER_HEAD_DIMS else "mma"
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The kernels a CUDA backward call of this type and head size
+    launches for its dK/dV and dQ passes, as ``flash_attention_bwd_launch``
+    chooses them: the forward's table."""
+    return route(dtype, hd)
 
 
 def _check_inputs(q, k, v, window):
@@ -162,7 +172,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor goes through the backward kernel (one call: three launches on
     the stream, D, then dK and dV, then dQ), a CPU tensor through the plain
     version.  Each CUDA call adds its ``BWD_LAUNCHES_PER_CALL`` launches to
-    ``flash_attention_bwd.launches``.
+    ``flash_attention_bwd.launches`` and to its :func:`bwd_route`'s count
+    in ``.launches_by_route``.
     """
     _check_inputs(q, k, v, window)
     B, S, H, hd = q.shape
@@ -200,15 +211,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(q.dtype == torch.bfloat16), stream)
     loader.check(lib, err, "flash_attention_bwd launch")
     flash_attention_bwd.launches += BWD_LAUNCHES_PER_CALL
+    flash_attention_bwd.launches_by_route[bwd_route(q.dtype, hd)] += \
+        BWD_LAUNCHES_PER_CALL
     return dq, dk, dv
 
 
 def zero_launches() -> None:
-    """Set the forward's total and every route's count of launches, and
-    the backward's count, to 0."""
-    flash_attention_fwd.launches = 0
-    flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
-    flash_attention_bwd.launches = 0
+    """Set the forward's and the backward's totals and every route's
+    count of launches to 0."""
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 zero_launches()

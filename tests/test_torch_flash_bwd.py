@@ -175,6 +175,31 @@ def test_wrappers_return_lse_and_check_the_backward_inputs():
         kernel.flash_attention_bwd(*m)
 
 
+@pytest.mark.parametrize("dtype", kernel.DTYPES, ids=str)
+@pytest.mark.parametrize("hd", kernel.HEAD_DIMS)
+def test_backward_route_by_type_and_head_size(dtype, hd):
+    """bf16 at hd 64-256 takes the TMA/wgmma kernels, bf16 at hd 16 and 32
+    the mma.sync ones, float32 the CUDA-core ones."""
+    want = ("f32" if dtype == torch.float32
+            else "hopper" if hd in (64, 128, 256) else "mma")
+    assert kernel.bwd_route(dtype, hd) == want
+    assert want in kernel.ROUTES
+
+
+def test_cpu_backward_calls_count_no_launch_on_any_route():
+    _, (q, k, v, dout) = _inputs(1, 16, 4, 1, 64, "bfloat16", 5)
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True)
+    launches = kernel.flash_attention_bwd.launches
+    before = dict(kernel.flash_attention_bwd.launches_by_route)
+    kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert kernel.flash_attention_bwd.launches == launches
+    assert kernel.flash_attention_bwd.launches_by_route == before
+    assert sorted(before) == sorted(kernel.ROUTES)
+    kernel.zero_launches()
+    assert kernel.flash_attention_bwd.launches_by_route == dict.fromkeys(
+        kernel.ROUTES, 0)
+
+
 def test_gqa_gradient_sums_over_the_group():
     """A kv head shared by 4 query heads gets the sum of the 4 gradients
     it would get if each query head had its own copy of it."""

@@ -7,9 +7,10 @@ present) and import neither jax nor the reference:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_train_card.py
 
 Inputs are drawn with numpy from a seed.  The backward kernel runs bf16
-on the tensor cores (``mma.sync``, P and dS rounded to bf16 as they enter
-the products) and float32 on the CUDA cores, the plain version in float32
-throughout, so the gate is a tile-sized block's: each block of 64 rows (n
+on the tensor cores (TMA and ``wgmma`` at hd 64-256, ``mma.sync`` at 16
+and 32; P and dS rounded to bf16 as they enter the products) and float32
+on the CUDA cores, the plain version in float32 throughout, so the gate is
+a tile-sized block's: each block of 64 rows (n
 elements) of each batch row and head within rtol·||plain|| + atol·√n,
 (1e-5, 1e-7) in float32 and (1e-2, 1e-5) in bf16, with the plain backward
 fed the plain forward's output and ``lse``.  ``lse`` itself is held
@@ -59,10 +60,35 @@ def _inputs(dev, B, S, H, KV, hd, dtype, seed):
                       (B, S, H, hd))]
 
 
-# every head size, GQA groups of 1-5, windows, ragged S across the tiles
+# every head size, GQA groups of 1-5, windows, ragged S across the tiles;
+# then the Hopper kernels' tile edges (hd 64-256): S at a tile's size and
+# one row either side (pass 2's blocks of 128 keys at hd 64 and 128, 64 at
+# hd 256, and its streamed 128 queries at hd 64; pass 3's blocks of 192
+# query rows at hd 64 and 128, 128 at hd 256, and its streamed 32 keys at
+# hd 256), B = 2, GQA groups of 4 and 6 at hd 128 (granite-3-8b's 32/8,
+# mistral-nemo-12b's 48/8), a window of a tile's size (and, in
+# WINDOW_ONE, bf16 only, a window of 1)
 CASES = [(2, 77, 4, 1, 16, 0), (1, 130, 4, 2, 32, 9), (1, 200, 8, 2, 64, 0),
          (1, 129, 4, 4, 128, 40), (1, 100, 4, 1, 256, 0),
-         (1, 300, 4, 1, 256, 64), (1, 1, 4, 1, 64, 0), (1, 96, 25, 5, 64, 33)]
+         (1, 300, 4, 1, 256, 64), (1, 1, 4, 1, 64, 0), (1, 96, 25, 5, 64, 33),
+         (1, 127, 4, 2, 64, 0), (1, 128, 4, 2, 64, 0), (1, 129, 4, 2, 64, 0),
+         (1, 127, 4, 1, 128, 0), (1, 128, 4, 1, 128, 0),
+         (1, 129, 4, 1, 128, 0), (1, 63, 4, 1, 256, 0), (1, 64, 4, 1, 256, 0),
+         (1, 65, 4, 1, 256, 0), (1, 127, 4, 1, 256, 0),
+         (1, 129, 4, 1, 256, 0), (2, 200, 4, 1, 256, 0),
+         (2, 150, 4, 2, 128, 16), (2, 140, 8, 8, 64, 0),
+         (1, 256, 8, 2, 128, 0), (1, 256, 12, 2, 128, 0),
+         (1, 300, 12, 2, 128, 37), (1, 300, 4, 2, 128, 128),
+         (1, 300, 4, 1, 256, 32), (1, 300, 4, 4, 64, 128),
+         (1, 191, 4, 2, 64, 0), (1, 192, 4, 1, 128, 0),
+         (1, 193, 4, 2, 64, 0), (1, 193, 4, 1, 128, 0),
+         (1, 31, 4, 1, 256, 0), (1, 33, 4, 1, 256, 0)]
+# A window of 1 leaves each query its own key: P = 1 and dS = dP - D = 0,
+# so dQ and dK are float32 rounding of that cancellation on both sides,
+# which the float32 gate's atol (sized for one cancelling row) does not
+# bound.  In bf16 the gate holds the Hopper kernels' masks at that edge.
+WINDOW_ONE = [(1, 200, 4, 1, 256, 1), (1, 200, 4, 2, 128, 1),
+              (1, 200, 4, 4, 64, 1)]
 
 
 @pytest.mark.cuda
@@ -70,6 +96,18 @@ CASES = [(2, 77, 4, 1, 16, 0), (1, 130, 4, 2, 32, 9), (1, 200, 8, 2, 64, 0),
 @pytest.mark.parametrize("B,S,H,KV,hd,win", CASES)
 def test_backward_kernel_matches_plain_version(card, B, S, H, KV, hd, win,
                                                dtype):
+    _check_backward(card, B, S, H, KV, hd, win, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,win", WINDOW_ONE)
+def test_backward_kernel_at_window_one(card, B, S, H, KV, hd, win):
+    _check_backward(card, B, S, H, KV, hd, win, torch.bfloat16)
+
+
+def _check_backward(card, B, S, H, KV, hd, win, dtype):
+    """The kernel's dq, dk, dv within the block gate of the plain
+    backward's, two calls bit-identical, each counted on its route."""
     q, k, v, g = _inputs(card, B, S, H, KV, hd, dtype, S + hd + win)
     out, lse = kernel.flash_attention_fwd(q, k, v, window=win,
                                           return_lse=True)
@@ -78,10 +116,16 @@ def test_backward_kernel_matches_plain_version(card, B, S, H, KV, hd, win,
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
     assert _block_err(out, out_p, dtype) <= 1
     launches = kernel.flash_attention_bwd.launches
+    routes = dict(kernel.flash_attention_bwd.launches_by_route)
     got = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
     again = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
     assert kernel.flash_attention_bwd.launches == \
         launches + 2 * kernel.BWD_LAUNCHES_PER_CALL
+    route = kernel.bwd_route(dtype, hd)
+    routes[route] += 2 * kernel.BWD_LAUNCHES_PER_CALL
+    assert kernel.flash_attention_bwd.launches_by_route == routes
+    assert route == ("f32" if dtype == torch.float32
+                     else "hopper" if hd >= 64 else "mma")
     want = kernel.flash_attention_bwd_plain(q, k, v, out_p, lse_p, g,
                                             window=win)
     torch.cuda.synchronize()
