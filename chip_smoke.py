@@ -237,6 +237,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     launches bit-identical, at the
     training shapes ``TRAIN_BWD_CASES`` (gemma3-1b [4, 2048, 4/1, 256] at
     windows 512 and 0, [4, 2048, 32/8, 128], [4, 2048, 32/32, 64]), and
+    in float32 at window 1 (``BWD_WINDOW_ONE``), where dS = dP - D
+    cancels to rounding, dQ and dK within rtol·||plain|| plus that
+    cancellation's bound (``bwd_cancel_bound`` in the port's
+    flash-attention oracle) and the gate failing the planted skipped
+    tile; and
     time it in bf16 beside its plain version, SDPA's backward and its
     bound (operations: 10·B·H·hd·live keys flops at the bf16 peak), each
     of its three kernels (``BWD_PASSES``) timed from a ``torch.profiler``
@@ -261,7 +266,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     more than 0.1 under its first 5's; and hymba-1.5b and rwkv6-7b, whose
     train step must raise the ``NotImplementedError`` naming their ROADMAP
     items;
-17. print the card's name and power limit, the ``kernels`` JSON line and,
+17. the parallel plane (``parallel_phase``): (a) one NCCL rank in this
+    process (its CPU tensors through gloo) on a (1, 1) ("data", "model")
+    mesh: gemma3-1b drawn whole at full width in bf16, its parameters
+    distributed by ``named(param_pspecs)`` and its AdamW moments by
+    ``opt_pspecs``; one backward of ``_loss_and_grads`` at [2 x 512]
+    (exactly 2 flash forward launches a layer and one backward call);
+    ``ef_compress`` (k_frac 0.01) and ``psum_int8`` over the whole
+    gradient tree, bit-equal to the same functions on a CPU copy, timed;
+    ``ring_all_gather``, ``reduce_scatter_sum`` and ``hierarchical_psum``
+    at world size 1; the distributed parameters saved and
+    ``restore_elastic`` ed onto the mesh, bit-equal, with times and
+    bytes; the [4 x 2048] prefill with ``sequence_parallel=True`` under the
+    mesh, bit-equal to the prefill without it, 26 flash launches;
+    ``sequence_shard`` and ``_expert_shard`` on replicated DTensor
+    activations, which come back with the reference's placements and
+    unchanged values; (b) 8 gloo ranks on the card as the (2, 2, 2) test
+    mesh: ``hierarchical_psum`` and ``psum_int8`` of a full-width layer
+    leaf equal the single-process sums on every rank; then the
+    reduce-scatter on two gloo ranks holding CUDA tensors, which must
+    give the single-process result, and the ring, which must give it or
+    fail by gloo's TCP transport refusing a device pointer (printed on a
+    line of its own); the phase's wall is printed;
+18. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -278,6 +305,7 @@ import cProfile
 import dataclasses
 import gc
 import json
+import os
 import pstats
 import re
 import subprocess
@@ -381,6 +409,8 @@ TRAIN_BWD_CASES = [("gemma3-1b", 4, 2048, 4, 1, 256, 512),
                    ("granite-3-8b", 4, 2048, 32, 8, 128, 0),
                    ("musicgen-large", 4, 2048, 32, 32, 64, 0)]
 BWD_GATE_ROWS = 64
+# the float32 window-1 case of phase 16a (P = 1: dS cancels to rounding)
+BWD_WINDOW_ONE = ("gemma3-1b", 4, 2048, 4, 1, 256, 1)
 # the backward's three bf16 kernels at hd 64-256, by name in a trace, and
 # the calls a per-kernel trace averages over
 BWD_PASSES = {"flash_bwd_dot_kernel": "D",
@@ -399,6 +429,15 @@ TRAIN_CLI = ["--arch", "gemma3-1b", "--smoke", "--steps", "30", "--batch",
              "8", "--seq", "64", "--lr", "3e-3", "--device", "cuda"]
 # float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
 FP32_FLOPS_PER_S = 67e12
+# the parallel plane (phase 17): gemma3-1b's backward on a short batch,
+# its [4 x 2048] prefill under sequence_parallel, top-k error feedback at
+# PARALLEL_K_FRAC; then PARALLEL_RANKS gloo ranks on the card as a
+# (2, 2, 2) mesh, summing one full-width layer leaf (w_gate's [d, d_ff])
+PARALLEL_ARCH = "gemma3-1b"
+PARALLEL_BATCH = (2, 512)
+PARALLEL_PREFILL = (4, 2048)
+PARALLEL_K_FRAC = 0.01
+PARALLEL_RANKS = 8
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
 N_ORACLE = 512             # of them checked against the brute-force oracle
@@ -1172,22 +1211,6 @@ def _live_pairs(S: int, window: int) -> int:
     if window <= 0 or window >= S:
         return S * (S + 1) // 2
     return window * (window + 1) // 2 + (S - window) * window
-
-
-def _block_err(got, want, rtol: float, atol: float,
-               rows: int = BWD_GATE_ROWS) -> float:
-    """The largest ||got - want|| / (rtol·||want|| + atol·√n) over the
-    blocks of ``rows`` sequence rows (n elements) of each batch row and
-    head of two [B, S, heads, hd] tensors: at most 1 where every block is
-    within its limit.  A tile-sized block holds the late rows, whose
-    gradients are small, as tightly as the early ones."""
-    B, S, Hh, hd = want.shape
-    n = -(-S // rows)
-    x = want.float().new_zeros((2, B, n * rows, Hh, hd))
-    x[0, :, :S] = got.float() - want.float()
-    x[1, :, :S] = want.float()
-    d, w = x.reshape(2, B, n, rows, Hh, hd).square().sum((3, 5)).sqrt()
-    return float((d / (rtol * w + atol * (rows * hd) ** 0.5)).max())
 
 
 def _planted_faults(torch, q, k, v, lse, dout, out, window: int,
@@ -2961,6 +2984,51 @@ def families_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                 family_walls=walls, family_max_abs_err=max_err)
 
 
+def bwd_window_one(torch, dev, gen) -> dict:
+    """Phase 16a's float32 case at window 1 (``BWD_WINDOW_ONE``; P = 1, so
+    dS = dP - D cancels to rounding): dQ and dK within rtol·||plain|| plus
+    the block's cancellation bound (``bwd_cancel_bound``), dV within the
+    gate, and the gate failing the planted skipped tile (at window 1 a skipped
+    tile loses dV's whole tile; what it loses of dQ and dK is itself
+    rounding, and is printed).  Returns the readings."""
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import (
+        bwd_block_err, bwd_cancel_bound)
+
+    name, B, S, H, KV, hd, w = BWD_WINDOW_ONE
+    rtol, atol = BWD_GATE["float32"]
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((B, S, H, hd), (B, S, KV, hd),
+                                (B, S, KV, hd), (B, S, H, hd)))
+    out, lse = flash.flash_attention_fwd(q, k, v, window=w, return_lse=True)
+    out_p = flash.flash_attention_plain(q, k, v, window=w)
+    lse_p = flash.flash_attention_lse_plain(q, k, window=w)
+    got = flash.flash_attention_bwd(q, k, v, out, lse, g, window=w)
+    want = flash.flash_attention_bwd_plain(q, k, v, out_p, lse_p, g,
+                                           window=w)
+    fault = _planted_faults(torch, q, k, v, lse_p, g, out_p, w)
+    bounds = bwd_cancel_bound(q, k, v, g) + (None,)
+    gate = [bwd_block_err(a, ref, rtol, atol, row_bound=b)
+            for a, ref, b in zip(got, want, bounds)]
+    caught = [bwd_block_err(a.float() - f, ref, rtol, atol, row_bound=b)
+              for a, ref, f, b in zip(got, want, fault, bounds)]
+    old = bwd_block_err(got[0], want[0], rtol, atol)
+    label = (f"flash_attention_bwd {name} [{B}, {S}, {H}/{KV}, {hd}] window "
+             f"{w} float32")
+    print(f"{label}: dq/dk at {gate[0]:.3g}/{gate[1]:.3g} of rtol x "
+          f"||plain|| + the cancellation bound (2 eps sum|dO V| |K| scale a "
+          f"row), dv at {gate[2]:.3g} of its block limit; a planted skipped "
+          f"tile at {caught[0]:.3g}/{caught[1]:.3g}/{caught[2]:.3g}; dq "
+          f"reads {old:.3g} of the atol gate, which does not bound this "
+          "cancellation")
+    if max(gate) > 1:
+        raise AssertionError(f"{label}: differs from the plain version")
+    if max(caught) <= 1:
+        raise AssertionError(f"{label}: the gate passes a planted skipped "
+                             "tile")
+    return dict(gate=gate, planted=caught, atol_gate_dq=old)
+
+
 def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     """Phase 16: one-card training.  The flash backward kernel against its
     plain version and timed at the training shapes; gemma3-1b whole at
@@ -2979,6 +3047,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.flash_attention.ref import bwd_block_err
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
@@ -3012,7 +3081,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
             lse_p = flash.flash_attention_lse_plain(q, k, window=w)
             lse_err = float(((lse - lse_p).abs()
                              / (LSE_TOL * (1 + lse_p.abs()))).max())
-            out_err = _block_err(out, out_p, rtol, atol)
+            out_err = bwd_block_err(out, out_p, rtol, atol)
             got = flash.flash_attention_bwd(q, k, v, out, lse, g, window=w)
             again = flash.flash_attention_bwd(q, k, v, out, lse, g,
                                               window=w)
@@ -3028,8 +3097,9 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                 if not torch.isfinite(a).all():
                     raise AssertionError(f"{label}: d{x} is not finite")
                 errs.append(float((a.float() - ref.float()).abs().max()))
-                gate.append(_block_err(a, ref, rtol, atol))
-                caught.append(_block_err(a.float() - f, ref, rtol, atol))
+                gate.append(bwd_block_err(a, ref, rtol, atol))
+                caught.append(bwd_block_err(a.float() - f, ref, rtol,
+                                            atol))
             max_err = max(max_err, *errs)
             print(f"{label}: lse at {lse_err:.3g} of its tolerance ("
                   f"{LSE_TOL} x (1 + |plain|)); out and dq/dk/dv at "
@@ -3091,6 +3161,8 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                 timing[f"{name} window {w}"] = t
                 del held, o_s, g_s
             del q, k, v, g, out, lse
+
+    window_one = bwd_window_one(torch, dev, gen)
     torch.cuda.empty_cache()
 
     def tree_equal(a, b):
@@ -3342,6 +3414,7 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     row.update(window0=timing["gemma3-1b window 0"],
                shapes={k: v for k, v in timing.items()
                        if not k.startswith("gemma3-1b")},
+               window1_float32=window_one,
                launches=gemma["launches"]["flash_bwd"],
                launches_by_route=gemma["backward_routes"],
                launches_per_step=per_call * cfg.n_layers,
@@ -3349,6 +3422,490 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                train=dict(gemma3_1b=gemma, float32_step=f32_row,
                           granite_3_8b=granite, smoke_cli=cli_row))
     return dict(bwd=row, fwd_train_launches_per_step=2 * cfg.n_layers)
+
+
+def _leaf_draw(torch, shape, dev, rank: int):
+    """Rank ``rank``'s float32 draw of one layer leaf's ``shape``, the same
+    in any process."""
+    gen = torch.Generator(device=dev).manual_seed(1700 + rank)
+    return torch.randn(tuple(shape), generator=gen, device=dev)
+
+
+def _parallel_rank(rank: int, out: str, device: str, shape) -> None:
+    """Phase 17b's rank ``rank`` (run by ``spawn_ranks``, gloo, every rank
+    on the one card): the (2, 2, 2) test mesh, ``hierarchical_psum`` over
+    ("data", "pod") and ``psum_int8`` over "data" of this rank's draw of
+    one layer leaf, saved to ``<out>/rank<r>.pt``."""
+    import torch
+
+    from repro_torch.core.compat import mesh_context
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.compression import psum_int8
+
+    if device == "cuda":
+        torch.cuda.set_device(0)             # every rank shares the card
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh = make_test_mesh(multi_pod=True)
+    g = _leaf_draw(torch, shape, dev, rank)
+    res = {"coordinate": list(mesh.get_coordinate())}
+    with mesh_context(mesh):
+        t0 = time.perf_counter()
+        res["hier"] = C.hierarchical_psum(g, "data", "pod")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res["hier_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["int8"] = psum_int8(g, "data")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res["int8_s"] = time.perf_counter() - t0
+    torch.save({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in res.items()}, Path(out, f"rank{rank}.pt"))
+
+
+# what gloo's TCP transport says when it is handed a CUDA tensor's device
+# pointer to write to its socket: the kernel refuses it (EFAULT)
+GLOO_DEVICE_POINTER = re.compile(r"pair\.cc:\d+\] writev \S+: Bad address")
+
+
+def _gloo_probe_rank(rank: int, out: str, device: str, op: str) -> None:
+    """One of two gloo ranks on the card running ``op``
+    (``ring_all_gather`` or ``reduce_scatter_sum``) on a CUDA tensor over
+    a (2,) "model" mesh.  The rank's standard error goes to
+    ``<out>/probe<r>.err``: gloo writes there when it aborts the process,
+    and a rank whose op raises writes its exception there and waits a
+    second before raising it, so that the peer it failed gets to write
+    its own first.  A result the op returns is saved to
+    ``<out>/probe<r>.pt``."""
+    import torch
+
+    from repro_torch.core.compat import make_mesh, mesh_context
+    from repro_torch.distributed import collectives as C
+
+    err = os.open(Path(out, f"probe{rank}.err"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(err, 2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    x = (torch.arange(32, dtype=torch.float32) + 100 * rank).reshape(8, 4)
+    x = x.to(device)
+    fn = C.ring_all_gather if op == "ring_all_gather" \
+        else C.reduce_scatter_sum
+    with mesh_context(make_mesh((2,), ("model",))):
+        try:
+            y = fn(x, "model")
+        except Exception as e:
+            print(f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+            time.sleep(1.0)
+            raise
+    torch.save(y.cpu(), Path(out, f"probe{rank}.pt"))
+
+
+def gloo_probes(torch, dev):
+    """Run the ring and the reduce-scatter on two gloo ranks holding
+    ``dev`` tensors; each that runs must give the single-process result.
+    ``reduce_scatter_sum`` must run.  ``ring_all_gather`` may fail only
+    by gloo's TCP transport refusing a device pointer
+    (``GLOO_DEVICE_POINTER`` in the exception or in either rank's
+    standard error): then that message is returned, and None where the
+    ring ran.  Any other failure is raised.  A refused op is named,
+    never retried on host tensors."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed.ranks import spawn_ranks
+
+    xs = [torch.arange(32, dtype=torch.float32).reshape(8, 4) + 100 * r
+          for r in range(2)]
+    want = {"ring_all_gather": [torch.cat(xs)] * 2,
+            "reduce_scatter_sum": [(xs[0] + xs[1])[4 * r:4 * r + 4]
+                                   for r in range(2)]}
+
+    def run(op, wd):
+        spawn_ranks(_gloo_probe_rank, 2, args=(wd, dev.type, op),
+                    store=f"{wd}/store", timeout_s=60)
+        got = [torch.load(Path(wd, f"probe{r}.pt")) for r in range(2)]
+        if not all(torch.equal(g, w) for g, w in zip(got, want[op])):
+            raise AssertionError(f"gloo {op} on {dev.type} tensors ran and "
+                                 "gave a wrong result")
+
+    def reduce_scatter():
+        with tempfile.TemporaryDirectory() as wd:
+            run("reduce_scatter_sum", wd)
+
+    def ring():
+        with tempfile.TemporaryDirectory() as wd:
+            try:
+                run("ring_all_gather", wd)
+            except (mp.ProcessRaisedException,
+                    mp.ProcessExitedException) as e:
+                said = [str(e)] + [
+                    Path(wd, f"probe{r}.err").read_text(errors="replace")
+                    for r in range(2) if Path(wd, f"probe{r}.err").exists()]
+                hits = [m.group(0) for m in map(GLOO_DEVICE_POINTER.search,
+                                                said) if m]
+                if not hits:
+                    raise
+                return hits[0]
+        return None
+
+    # the probes' ranks start together (each process takes seconds to
+    # reach the card)
+    with ThreadPoolExecutor(2) as ex:
+        scattered, refused = ex.submit(reduce_scatter), ex.submit(ring)
+        scattered.result()
+        return refused.result()
+
+
+def parallel_phase(torch, np, dev, zero_counts, read_counts,
+                   backend="cpu:gloo,cuda:nccl") -> dict:
+    """Phase 17: the parallel plane on the card.
+
+    a) One NCCL rank in this process (a file-store group whose CPU tensors
+       go through gloo, destroyed afterwards; ``backend`` is ``gloo`` only
+       where this is rehearsed on the CPU): a (1, 1) ("data", "model")
+       mesh; ``PARALLEL_ARCH`` drawn whole at full width in bf16, its
+       parameters distributed by ``named(param_pspecs)`` and its AdamW
+       moments by ``opt_pspecs``; one backward of ``_loss_and_grads`` on
+       a ``PARALLEL_BATCH`` batch (exact flash forward and backward
+       launches); ``ef_compress`` at ``PARALLEL_K_FRAC`` and ``psum_int8``
+       over the whole gradient tree, each equal bit for bit to the same
+       function on a CPU copy of the tree and timed; ``ring_all_gather``,
+       ``reduce_scatter_sum`` and ``hierarchical_psum`` at world size 1;
+       a checkpoint of the distributed parameters saved and
+       ``restore_elastic`` ed onto the mesh, bit-equal, its times and bytes
+       printed; the ``PARALLEL_PREFILL`` prefill with
+       ``sequence_parallel=True`` under the mesh, bit-equal to the prefill
+       without it, with exactly one flash launch a layer (its activations
+       are plain tensors, which the hints return as they are); then
+       ``sequence_shard`` and ``_expert_shard`` on replicated bf16
+       DTensor activations on the mesh, which must come back with the
+       reference's placements and unchanged values.
+    b) ``PARALLEL_RANKS`` gloo ranks spawned on the same card as the
+       (2, 2, 2) test mesh: ``hierarchical_psum`` and ``psum_int8`` of one
+       full-width layer leaf, each rank's result equal bit for bit to the
+       single-process sum on the card; then ``gloo_probes``: the
+       reduce-scatter on two gloo ranks holding CUDA tensors must give
+       the single-process result; the ring's send/recv must give it too
+       or fail by gloo's transport refusing a device pointer, which is
+       printed on a line of its own (never moved to host tensors).
+
+    Returns the flash kernels' launches on 17a's paths, the times and the
+    bytes."""
+    import datetime
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import store
+    from repro_torch.checkpoint.elastic import restore_elastic
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.compat import make_mesh, mesh_context
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import meshes as M
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import (ef_compress,
+                                               init_error_state, psum_int8)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    def leaves_equal(a, b):
+        la, lb = adamw.tree_leaves(a), adamw.tree_leaves(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+            for x, y in zip(la, lb))
+
+    smi = _nvidia_smi("name,power.limit")
+    per_call = flash.BWD_LAUNCHES_PER_CALL
+    out = {"times_s": {}, "bytes": {}, "launches": {}}
+    cfg = get_config(PARALLEL_ARCH)
+
+    # ---- a. one rank ----------------------------------------------------
+    print(f"phase 17a: one {backend} rank in this process")
+    with tempfile.TemporaryDirectory() as wd:
+        dist.init_process_group(backend, init_method=f"file://{wd}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            if mesh.device_type != dev.type:
+                raise AssertionError(f"the mesh's device type "
+                                     f"{mesh.device_type}, not {dev.type}")
+            # the group's first collective sets up its communicator: done
+            # here, so that no timed step holds it
+            _, t_setup = timed(lambda: dist.all_reduce(
+                torch.zeros(1, device=dev), group=mesh.get_group("data")))
+            out["times_s"]["group set-up"] = t_setup
+            params = T.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(17), dev)
+            opt = adamw.init_opt_state(params)
+
+            def distribute(tree, specs):
+                return adamw.tree_map(lambda x, sh: sh.distribute(x), tree,
+                                      M.named(specs, mesh))
+
+            d_params, t_dist = timed(lambda: distribute(
+                params, M.param_pspecs(cfg, params, mesh)))
+            opt_specs = M.opt_pspecs(cfg, params, mesh)
+            (d_mu, d_nu), t_moments = timed(lambda: (
+                distribute(opt.mu, opt_specs), distribute(opt.nu, opt_specs)))
+            for tree, want in ((d_params, params), (d_mu, opt.mu),
+                               (d_nu, opt.nu)):
+                for x, y in zip(adamw.tree_leaves(tree),
+                                adamw.tree_leaves(want)):
+                    if x.to_local().device != y.device or not torch.equal(
+                            x.to_local(), y):
+                        raise AssertionError("a distributed leaf differs "
+                                             "from its parameter")
+            n_params = T.param_count(params)
+            out["times_s"].update(distribute=t_dist,
+                                  distribute_moments=t_moments)
+            print(f"{PARALLEL_ARCH}: {n_params} parameters and both moments "
+                  f"distributed on the (1, 1) mesh ({t_dist:.3f} s for the "
+                  f"parameters, DTensor's first use; {t_moments:.3f} s for "
+                  f"the moments; the group's set-up {t_setup:.3f} s "
+                  "before), each local block the whole leaf")
+            del d_mu, d_nu, opt
+
+            # one backward on a short batch: the gradient tree
+            B, S = PARALLEL_BATCH
+            batch = {"tokens": torch.from_numpy(
+                np.random.default_rng(17).integers(
+                    0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)}
+            zero_counts()
+            (loss, grads), t_bwd = timed(
+                lambda: steps._loss_and_grads(cfg, params, batch))
+            on = read_counts()
+            want = {"flash": 2 * cfg.n_layers,
+                    "flash_bwd": per_call * cfg.n_layers}
+            if {k: on[k] for k in want} != want or any(
+                    n_ for k, n_ in on.items() if k not in want):
+                raise AssertionError(f"the backward launched {on}; want "
+                                     f"{want} and nothing else")
+            out["launches"]["backward"] = {k: on[k] for k in want}
+            out["times_s"]["backward"] = t_bwd
+            print(f"{PARALLEL_ARCH} backward [{B} x {S}]: loss "
+                  f"{float(loss):.4f}, {t_bwd:.3f} s, launches {on}")
+
+            # top-k error feedback and the int8 sum, card against CPU
+            host = adamw.tree_map(lambda t: t.cpu(), grads)
+            k_frac = PARALLEL_K_FRAC
+            (comp, carry), t_ef = timed(lambda: ef_compress(
+                grads, init_error_state(grads), k_frac))
+            # each leaf is compressed on its own, so the CPU copy's leaves
+            # go through ef_compress in threads (topk holds one core a leaf)
+            with ThreadPoolExecutor(8) as ex:
+                pairs_h, t_ef_h = timed(lambda: list(ex.map(
+                    lambda g: ef_compress(g, init_error_state(g), k_frac),
+                    adamw.tree_leaves(host))))
+            comp_h = [c for c, _ in pairs_h]
+            carry_h = [e for _, e in pairs_h]
+            if not (leaves_equal(comp, comp_h)
+                    and leaves_equal(carry, carry_h)):
+                raise AssertionError("ef_compress on the card differs from "
+                                     "its CPU copy's")
+            del pairs_h
+            kept = sum(int((x != 0).sum()) for x in adamw.tree_leaves(comp))
+            n_grad = sum(x.numel() for x in adamw.tree_leaves(grads))
+            del comp, carry, comp_h, carry_h
+            with mesh_context(mesh):
+                q, t_q = timed(lambda: adamw.tree_map(
+                    lambda g: psum_int8(g, "data"), grads))
+                q_h, t_q_h = timed(lambda: adamw.tree_map(
+                    lambda g: psum_int8(g, "data"), host))
+            if not leaves_equal(q, q_h):
+                raise AssertionError("psum_int8 on the card differs from "
+                                     "its CPU copy's")
+            del q, q_h, host
+            out["times_s"].update(ef_compress=t_ef, ef_compress_cpu=t_ef_h,
+                                  psum_int8=t_q, psum_int8_cpu=t_q_h)
+            out["kept"] = [kept, n_grad]
+            print(f"ef_compress (k_frac {k_frac}) over {n_grad} gradient "
+                  f"entries in {len(adamw.tree_leaves(grads))} leaves keeps "
+                  f"{kept}: {t_ef:.3f} s on {dev.type}, {t_ef_h:.3f} s on "
+                  f"the CPU (a leaf a thread, 8 threads), outputs and carry "
+                  f"bit-equal; psum_int8 over the "
+                  f"tree {t_q:.3f} s / {t_q_h:.3f} s, bit-equal, on {smi}")
+
+            # the collectives at world size 1
+            x = adamw.tree_leaves(grads)[0]
+            with mesh_context(mesh):
+                for name, fn in (
+                        ("ring_all_gather",
+                         lambda: C.ring_all_gather(x, "model")),
+                        ("reduce_scatter_sum",
+                         lambda: C.reduce_scatter_sum(x, "data")),
+                        ("hierarchical_psum",
+                         lambda: C.hierarchical_psum(x, "data", "model"))):
+                    y, t = timed(fn)
+                    if not torch.equal(y, x):
+                        raise AssertionError(f"{name} at world size 1 "
+                                             "changed its input")
+                    out["times_s"][name] = t
+            print(f"ring_all_gather, reduce_scatter_sum, hierarchical_psum "
+                  f"at world size 1 on a {list(x.shape)} leaf: equal to it, "
+                  + ", ".join(f"{k} {out['times_s'][k]:.4f} s" for k in
+                              ("ring_all_gather", "reduce_scatter_sum",
+                               "hierarchical_psum")))
+            del grads, x
+
+            # save the distributed parameters, restore them elastically
+            ckpt = f"{wd}/ckpt"
+            _, t_save = timed(lambda: store.save(ckpt, 1, d_params,
+                                                 extra={"step": 1}))
+            nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(ckpt) for f in fs)
+            (restored, extra), t_restore = timed(lambda: restore_elastic(
+                ckpt, params, cfg, mesh))
+            got = adamw.tree_leaves(restored)
+            if extra["step"] != 1 or not all(
+                    torch.equal(r.to_local(), p) for r, p in
+                    zip(got, adamw.tree_leaves(params))):
+                raise AssertionError("restore_elastic differs from the "
+                                     "saved parameters")
+            out["times_s"].update(save=t_save, restore_elastic=t_restore)
+            out["bytes"]["checkpoint"] = nbytes
+            print(f"checkpoint of the distributed parameters: {nbytes} "
+                  f"bytes, save {t_save:.3f} s, restore_elastic onto the "
+                  f"mesh {t_restore:.3f} s, every leaf bit-equal on {smi}")
+            del restored, got, d_params
+
+            # the sequence-parallel prefill under the mesh
+            B, S = PARALLEL_PREFILL
+            toks = torch.from_numpy(np.random.default_rng(18).integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+            base, t_base = timed(lambda: steps.make_prefill_step(cfg)(
+                params, {"tokens": toks}))
+            sp = cfg.replace(sequence_parallel=True)
+            zero_counts()
+            with mesh_context(mesh):
+                got, t_sp = timed(lambda: steps.make_prefill_step(sp)(
+                    params, {"tokens": toks}))
+            on = read_counts()
+            if not torch.equal(got, base):
+                raise AssertionError("the sequence-parallel prefill differs "
+                                     "from the prefill without it")
+            want = {"flash": cfg.n_layers}
+            if on["flash"] != want["flash"] or any(
+                    n_ for k, n_ in on.items() if k != "flash"):
+                raise AssertionError(f"the sequence-parallel prefill "
+                                     f"launched {on}; want {want}")
+            out["launches"]["prefill"] = {"flash": on["flash"]}
+            out["times_s"].update(prefill=t_base, prefill_sp=t_sp)
+            print(f"{PARALLEL_ARCH} prefill [{B} x {S}] with "
+                  f"sequence_parallel=True under the mesh: {t_sp:.3f} s "
+                  f"(without it {t_base:.3f} s), logits bit-equal, "
+                  f"{on['flash']} flash launches (its activations are "
+                  "plain tensors, which the hints pass through)")
+            del params, base, got
+
+            # the hints on DTensor activations replicated on the mesh:
+            # sequence_shard's [B, S, d] goes to batch x "data" and
+            # sequence x "model", _expert_shard's [E, B, C, d] to experts
+            # x "data", each with its values unchanged
+            from torch.distributed.tensor import (Replicate, Shard,
+                                                  distribute_tensor)
+
+            from repro_torch.models import layers, moe
+            gen = torch.Generator(device=dev).manual_seed(19)
+            for name, fn, shape, want in (
+                    ("sequence_shard", layers.sequence_shard,
+                     (B, S, cfg.d_model), (Shard(0), Shard(1))),
+                    ("_expert_shard", moe._expert_shard,
+                     (8, B, 256, cfg.d_model), (Shard(0), Replicate()))):
+                a = torch.randn(shape, generator=gen, device=dev).to(
+                    torch.bfloat16)
+                d = distribute_tensor(a, mesh, (Replicate(), Replicate()))
+                with mesh_context(mesh):
+                    y = fn(d)
+                if tuple(y.placements) != want or not torch.equal(
+                        y.full_tensor(), a) or not torch.equal(
+                            y.to_local(), a):
+                    raise AssertionError(
+                        f"{name} gave {tuple(y.placements)} on the mesh; "
+                        f"want {want} with the values unchanged")
+                print(f"{name} on a replicated {list(shape)} bf16 DTensor "
+                      f"under the mesh: placements {tuple(y.placements)}, "
+                      "values unchanged")
+            del a, d, y
+        finally:
+            dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- b. ranks sharing the card -------------------------------------
+    ranks = PARALLEL_RANKS
+    print(f"phase 17b: {ranks} gloo ranks on {dev.type}:0 as the (2, 2, 2) "
+          "test mesh")
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        # one full-width layer leaf: w_gate's [d_model, d_ff]
+        shape = (cfg.d_model, cfg.d_ff)
+        spawn_ranks(_parallel_rank, ranks, args=(wd, dev.type, shape),
+                    store=f"{wd}/store", timeout_s=300)
+        out["times_s"][f"{ranks} ranks, spawn to exit"] = (
+            time.perf_counter() - t0)
+        got = [torch.load(Path(wd, f"rank{r}.pt")) for r in range(ranks)]
+    leaves = {r: _leaf_draw(torch, shape, dev, r) for r in range(ranks)}
+    at = {tuple(g["coordinate"]): r for r, g in enumerate(got)}
+    for r, g in enumerate(got):
+        pod, data, model = g["coordinate"]
+        # data first (pairs), then pod: the ranks' order of the adds
+        pair = [leaves[at[(p, 0, model)]] + leaves[at[(p, 1, model)]]
+                for p in (0, 1)]
+        want_h = pair[0] + pair[1]
+        s = torch.maximum(leaves[at[(pod, 0, model)]].abs().max(),
+                          leaves[at[(pod, 1, model)]].abs().max()
+                          ) / 127.0 + 1e-12
+        want_q = sum(torch.clamp(torch.round(
+            leaves[at[(pod, d, model)]] / s), -127, 127).to(torch.int8).to(
+                torch.int32) for d in (0, 1)).to(torch.float32) * s
+        if not torch.equal(g["hier"], want_h.cpu()):
+            raise AssertionError(f"rank {r}: hierarchical_psum differs from "
+                                 "the single-process sum")
+        if not torch.equal(g["int8"], want_q.cpu()):
+            raise AssertionError(f"rank {r}: psum_int8 differs from the "
+                                 "single-process sum")
+    out["times_s"]["17b hierarchical_psum"] = max(g["hier_s"] for g in got)
+    out["times_s"]["17b psum_int8"] = max(g["int8_s"] for g in got)
+    out["bytes"]["17b leaf"] = leaves[0].numel() * 4
+    print(f"{ranks} ranks: hierarchical_psum and psum_int8 of a "
+          f"{list(leaves[0].shape)} float32 leaf equal the single-process "
+          f"sums on every rank (slowest rank {out['times_s']['17b hierarchical_psum']:.3f} s / "
+          f"{out['times_s']['17b psum_int8']:.3f} s) on {smi}")
+    t0 = time.perf_counter()
+    refused = gloo_probes(torch, dev)
+    out["times_s"]["gloo probes"] = time.perf_counter() - t0
+    print(f"gloo with {dev.type} tensors: reduce_scatter_sum ran on two "
+          "ranks and gave the single-process result")
+    if refused is None:
+        print(f"gloo with {dev.type} tensors: ring_all_gather ran on two "
+              "ranks and gave the single-process result")
+    else:
+        print(f"gloo with {dev.type} tensors refuses ring_all_gather's "
+              f"send/recv: its TCP transport cannot write a device pointer "
+              f"({refused}); the ring is held across ranks by the CPU "
+              "tests and on the card by 17a's NCCL rank")
+    out["gloo_refused"] = ({} if refused is None
+                           else {"ring_all_gather": refused})
+    return out
 
 
 def _tree_to(tree, device):
@@ -4240,7 +4797,14 @@ def main() -> int:
         {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
          for k, v in timing["flash_bwd"]["train"].items()}))
 
-    # ---- 17. result lines ---------------------------------------------
+    # ---- 17. the parallel plane ----------------------------------------
+    t0 = time.perf_counter()
+    par = parallel_phase(torch, np, dev, zero_counts, read_counts)
+    par["times_s"]["phase 17 wall"] = time.perf_counter() - t0
+    print(f"parallel plane on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps({k: par[k] for k in ("times_s", "bytes")}))
+
+    # ---- 18. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (
@@ -4288,6 +4852,10 @@ def main() -> int:
         if key in sharded["launches"]:
             rows[-1]["sharded_launches"] = sharded["launches"][key]
             rows[-1]["sharded_slabs"] = sharded["slabs"][key]
+        if key in ("flash", "flash_bwd"):
+            rows[-1]["parallel_launches"] = {
+                path: n[key] for path, n in par["launches"].items()
+                if key in n}
         if key in stream["launches"]:
             rows[-1]["stream_launches"] = stream["launches"][key]
             rows[-1]["stream_delta"] = [

@@ -28,6 +28,11 @@ moments ``1/.mu/...``, as the reference's does).  Leaves are numpy arrays, Pytho
 ``torch.Tensor`` s on any device; ``restore`` returns tensors.  The
 payload map is written and read by this module's own msgpack codec, which
 knows exactly one shape: a map of str → bin.
+
+Sharded state: ``save`` takes DTensor leaves and writes their whole
+logical arrays, as the reference's store keeps unsharded arrays;
+``restore(..., shardings=)`` places each array back on a mesh as a DTensor
+(the elastic re-shard, ``checkpoint/elastic.py``).
 """
 from __future__ import annotations
 
@@ -191,6 +196,13 @@ def _unflatten(like: Any, flat: Dict[str, Any],
     return flat["/".join(prefix)]
 
 
+def _is_dtensor(leaf: Any) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     """(wire array, original dtype tag): bfloat16 travels as its uint16
     view, since numpy has no bfloat16."""
@@ -221,7 +233,14 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
          codec: Optional[str] = None, keep_last: Optional[int] = None) -> str:
     """Write one checkpoint; some complete checkpoint survives a crash at
     any point.  ``keep_last=N`` prunes all but the newest N steps after the
-    commit (the step LATEST points at is never pruned)."""
+    commit (the step LATEST points at is never pruned).
+
+    A tree with DTensor leaves is saved SPMD: every rank of their meshes
+    calls ``save`` with its shards, each leaf is gathered whole on every
+    rank (``full_tensor``, a collective), rank 0 of the default process
+    group alone writes the step, and every rank waits at a barrier until
+    it is committed, so that a ``restore`` that follows on any rank reads
+    it.  Other trees are written by whichever process calls ``save``."""
     if codec is None:
         codec = "zstd" if HAVE_ZSTD else "raw"
     if codec not in _CODEC_FILES:
@@ -230,6 +249,23 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
         raise ImportError("codec='zstd' requires the 'zstandard' package")
     flat = _flatten(tree)
     step_dir = _step_dir(ckpt_dir, step)
+    if any(_is_dtensor(leaf) for leaf in flat.values()):
+        import torch.distributed as dist
+
+        flat = {k: v.full_tensor() if _is_dtensor(v) else v
+                for k, v in flat.items()}
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step_dir, step, flat, extra, codec, keep_last)
+        dist.barrier()
+        return step_dir
+    _write(ckpt_dir, step_dir, step, flat, extra, codec, keep_last)
+    return step_dir
+
+
+def _write(ckpt_dir: str, step_dir: str, step: int, flat: Dict[str, Any],
+           extra: Optional[Dict], codec: str,
+           keep_last: Optional[int]) -> None:
+    """Write and commit one step of whole arrays."""
     tmp = step_dir + ".tmp"
     old = step_dir + ".old"
     # a crashed save may have left a stale .tmp (half-written payloads —
@@ -277,7 +313,6 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
         shutil.rmtree(old)
     if keep_last is not None:
         _prune(ckpt_dir, keep_last)
-    return step_dir
 
 
 def _prune(ckpt_dir: str, keep_last: int) -> None:
@@ -400,20 +435,30 @@ def load_arrays(ckpt_dir: str, step: Optional[int] = None
 
 
 def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            shardings: Any = None,
             device: Union[str, torch.device, None] = None
             ) -> Tuple[Any, Dict]:
     """Restore into the structure of ``like`` (shapes validated) as torch
     tensors on ``device`` (the CPU when None), bfloat16 leaves as
     ``torch.bfloat16``.
 
-    The reference's ``shardings=`` (elastic re-sharding onto a new mesh)
-    has no counterpart here until ``checkpoint/elastic.py`` is ported."""
+    ``shardings`` (a tree matching ``like`` of
+    :class:`repro_torch.distributed.meshes.NamedSharding`, as
+    ``meshes.named`` builds it) places each array it names on its mesh as
+    a DTensor: every rank of the mesh reads the step and keeps its own
+    block on the mesh's device type; ``device`` is then unused for those
+    leaves.  This is the elastic re-shard path."""
     manifest, payload, _ = _read_payload(ckpt_dir, step)
+    flat_shard = _flatten(shardings) if shardings is not None else {}
     out = {}
     for key, leaf in _flatten(like).items():
         meta = manifest["arrays"][key]
         want = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         if tuple(meta["shape"]) != want:
             raise AssertionError((key, tuple(meta["shape"]), want))
-        out[key] = _as_tensor(meta, payload[key], device)
+        if key in flat_shard:
+            out[key] = flat_shard[key].distribute(
+                _as_tensor(meta, payload[key], None))
+        else:
+            out[key] = _as_tensor(meta, payload[key], device)
     return _unflatten(like, out), manifest["extra"]

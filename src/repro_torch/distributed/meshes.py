@@ -1,0 +1,385 @@
+"""Meshes and named-sharding rules for every arch and tree, the reference's
+``repro/distributed/meshes.py`` on ``torch.distributed``.
+
+The rules are the reference's table, branch for branch: by name and path
+over the parameter tree (the leading layer-stack dim is handled by right
+alignment), each divisibility-checked against the mesh.  An axis that
+does not divide its dim is dropped (replicated) rather than raising, so one
+table serves vocab sizes like 49,155 and head counts like 25.
+
+Sharding scheme:
+  embeddings   vocab on "model" (fallback d_model)
+  attention    col-sharded qkv, row-sharded o ("model" = TP axis)
+  MLP          megatron col→row
+  MoE          experts on "data" (EP); fsdp adds "data" on d_ff/d_model
+  SSM/RWKV     channel/head-sharded on "model" (state stays rank-local)
+  batch        ("pod", "data")
+  optimizer    param spec + ZeRO-1 over "data" on the first free dim
+  KV caches    batch on ("pod","data"), sequence on "model"
+
+A spec is a :class:`PartitionSpec`: one entry a tensor dim, each ``None``,
+an axis name or a tuple of axis names (the dim split over their product,
+the first axis major).  :func:`named` pairs specs with a mesh as
+:class:`NamedSharding` objects, which give DTensor placements and place a
+full tensor on the mesh.  The rules take a ``DeviceMesh`` or a device-free
+:class:`repro_torch.core.compat.AbstractMesh`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compat import axis_names, axis_sizes
+from repro_torch.core.compat import make_mesh as _compat_make_mesh
+from repro_torch.optim.adamw import tree_map
+
+# archs whose dense weights exceed one chip's memory under pure TP shard
+# their weights over "data" too (FSDP / ZeRO-3 style).  MoE archs use
+# expert parallelism over "data" instead, so none needs FSDP today.
+FSDP_ARCHS: tuple = ()
+
+
+class PartitionSpec:
+    """Per-dimension axis assignment: ``PartitionSpec("data", None)``.
+    Iterates, indexes and compares like the tuple of its entries.  An
+    entry that names one axis in a tuple, ``("data",)``, is kept as the
+    bare name, as jax's ``PartitionSpec`` keeps it."""
+
+    __slots__ = ("_parts",)
+
+    def __init__(self, *parts):
+        self._parts = tuple(_entry(p) for p in parts)
+
+    def __iter__(self):
+        return iter(self._parts)
+
+    def __len__(self) -> int:
+        return len(self._parts)
+
+    def __getitem__(self, i):
+        return self._parts[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, PartitionSpec):
+            return self._parts == other._parts
+        return isinstance(other, tuple) and self._parts == other
+
+    def __hash__(self) -> int:
+        return hash(self._parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self._parts!r}"
+
+
+P = PartitionSpec
+
+
+def _entry(p):
+    if isinstance(p, (list, tuple)):
+        p = tuple(p)
+        return p[0] if len(p) == 1 else p
+    return p
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+class NamedSharding:
+    """A mesh and a :class:`PartitionSpec` (``jax.sharding.NamedSharding``)."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+    def placements(self) -> tuple:
+        """DTensor placements, one a mesh dimension: ``Shard(d)`` on each
+        axis that the spec puts on tensor dim d, ``Replicate()`` on the
+        rest.  A tuple entry must list its axes in mesh order, the order in
+        which DTensor nests shards of one dim, so that the first axis is
+        major as in the reference."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = axis_names(self.mesh)
+        where = {}
+        for d, entry in enumerate(self.spec):
+            axes = _axes_of(entry)
+            order = [names.index(a) for a in axes]
+            if order != sorted(order):
+                raise NotImplementedError(
+                    f"spec entry {entry!r} lists its axes out of the mesh's "
+                    f"order {names}")
+            for a in axes:
+                where[a] = d
+        return tuple(Shard(where[a]) if a in where else Replicate()
+                     for a in names)
+
+    def slices(self, shape: Sequence[int], coord: Sequence[int]
+               ) -> Tuple[slice, ...]:
+        """The block of a ``shape`` array that the rank at mesh coordinate
+        ``coord`` holds (the reference's ``devices_indices_map``)."""
+        sizes = axis_sizes(self.mesh)
+        at = dict(zip(axis_names(self.mesh), coord))
+        out = []
+        for d, n in enumerate(shape):
+            entry = self.spec[d] if d < len(self.spec) else None
+            idx, parts = 0, 1
+            for a in _axes_of(entry):
+                idx, parts = idx * sizes[a] + at[a], parts * sizes[a]
+            step = n // parts
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def distribute(self, full: torch.Tensor):
+        """``full`` (the whole array, on every rank of the mesh) as a
+        DTensor on the mesh: each rank keeps its own block, copied to the
+        mesh's device type; no collective runs."""
+        from torch.distributed.tensor import DTensor
+
+        coord = self.mesh.get_coordinate()
+        if coord is None:
+            raise RuntimeError("this rank is not in the sharding's mesh")
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if self.mesh.device_type == "cuda"
+                  else torch.device(self.mesh.device_type))
+        local = full[self.slices(full.shape, coord)].to(device).contiguous()
+        return DTensor.from_local(local, self.mesh, self.placements(),
+                                  run_check=False, shape=full.shape,
+                                  stride=full.contiguous().stride())
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str]):
+    return _compat_make_mesh(tuple(shape), tuple(axes))
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    names = axis_names(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _fits(dim: int, mesh, axis) -> bool:
+    if axis is None:
+        return True
+    sizes = axis_sizes(mesh)
+    return dim % int(np.prod([sizes[a] for a in _axes_of(axis)])) == 0
+
+
+def _checked(spec_tail, shape, mesh) -> PartitionSpec:
+    """Right-align spec_tail on shape; drop non-dividing axes; pad with
+    None."""
+    n = len(shape)
+    tail = list(spec_tail)[-n:] if n else []
+    full = [None] * (n - len(tail)) + tail
+    out = []
+    for dim, ax in zip(shape, full):
+        out.append(ax if (ax is not None and _fits(dim, mesh, ax)) else None)
+    return P(*out)
+
+
+def _map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """``fn("/"-joined path, leaf)`` over a tree of dicts, lists and tuples,
+    keeping its structure: dict keys and sequence indices, as the
+    reference's ``_path_str`` joins jax's key paths."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_map_with_path(fn, v, path + (str(i),))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(type(tree), "_fields") \
+            else type(tree)(out)
+    return fn("/".join(path), tree)
+
+
+_COL = ("wq", "wk", "wv", "wg", "w_gate", "w_up", "in_proj", "dt_proj",
+        "wq_a", "wq_b", "wkv_b", "wr", "proj")
+_ROW = ("wo", "w_down", "out_proj", "x_proj")
+_REP = ("wkv_a", "router", "mix_w1", "mix_w2", "w_lora1", "w_lora2",
+        "mu_base", "mu_k", "mu_r", "w_base", "ln_scale", "scale", "dt_bias")
+
+
+def param_spec(path: str, shape: Tuple[int, ...], mesh,
+               fsdp: bool, tied: bool = False) -> PartitionSpec:
+    """FSDP note: "data" is stacked on the SAME dim as "model" (a
+    ("data","model") tuple: pure N-way weight sharding, gathered per layer).
+    Sharding "data" on the *opposite* dim would conflict with the batch's
+    data sharding and replicate activations."""
+    name = path.split("/")[-1]
+    in_moe = "/moe/" in path and "/shared/" not in path
+    shape = tuple(shape)
+
+    def tp(dim_idx_from_right: int, spec_tail):
+        """spec_tail with ("data","model") fused on the model dim if
+        fsdp."""
+        if not fsdp or "data" not in axis_names(mesh):
+            return _checked(spec_tail, shape, mesh)
+        fused = tuple(("data", "model") if ax == "model" else ax
+                      for ax in spec_tail)
+        cand = _checked(fused, shape, mesh)
+        # if the fused axis didn't divide, fall back to model-only
+        if any(isinstance(ax, tuple) for ax in cand):
+            return cand
+        return _checked(spec_tail, shape, mesh)
+
+    if name in ("embed", "lm_head"):
+        V, d = shape[-2], shape[-1]
+        # lm_head (and tied embeddings): vocab on "model" -> [T@data,
+        # V@model] logits.  Untied input embed: d on "model".
+        if name == "lm_head":
+            if _fits(V, mesh, "model"):
+                return _checked((None, "model", None), shape, mesh)
+            return _checked((None, None, "model"), shape, mesh)
+        # input embed: prefer d-shard, except tied archs, whose logits
+        # come from the same table (vocab-shard wins there)
+        if tied and _fits(V, mesh, "model"):
+            return _checked((None, "model", None), shape, mesh)
+        if _fits(d, mesh, "model"):
+            return _checked((None, None, "model"), shape, mesh)
+        if _fits(V, mesh, "model"):
+            return _checked((None, "model", None), shape, mesh)
+        return P(*([None] * len(shape)))
+    if name in ("codebook_embed", "codebook_head"):
+        # EnCodec codebooks are tiny (2048×d): replicate
+        return P(*([None] * len(shape)))
+    if name == "u":                                   # rwkv bonus [L,H,n]
+        return _checked((None, "model", None), shape, mesh)
+    if name in ("A_log", "conv_w"):                   # [..., di, N] / [...,K,di]
+        if name == "A_log":
+            return _checked((None, "model", None), shape, mesh)
+        return _checked((None, None, "model"), shape, mesh)
+    if name == "D":
+        return _checked((None, "model"), shape, mesh)
+    if in_moe and name in ("w_gate", "w_up", "w_down"):  # [L,E,d,ff]/[L,E,ff,d]
+        # expert-parallel over "data" + megatron TP over "model" inside
+        # each expert; d_model stays unsharded
+        E = shape[1]
+        e_ax = "data" if ("data" in axis_names(mesh)
+                          and _fits(E, mesh, "data")) \
+            else ("model" if _fits(E, mesh, "model") else None)
+        tp_ax = "model" if e_ax != "model" else None
+        if name == "w_down":                          # [L,E,ff,d]
+            return _checked((None, e_ax, tp_ax, None), shape, mesh)
+        return _checked((None, e_ax, None, tp_ax), shape, mesh)
+    if "/channel/" in path and name == "wv":          # rwkv channel [L,ff,d]
+        return tp(1, (None, "model", None))
+    if name in _ROW:
+        return tp(1, (None, "model", None))
+    if name in _COL:
+        return tp(0, (None, None, "model"))
+    if name in _REP or shape == () or len(shape) <= 2:
+        return P(*([None] * len(shape)))
+    return P(*([None] * len(shape)))
+
+
+def param_pspecs(cfg: ModelConfig, params: Any, mesh) -> Any:
+    fsdp = cfg.arch_id in FSDP_ARCHS or cfg.parallel_strategy == "fsdp"
+    return _map_with_path(
+        lambda path, x: param_spec(path, tuple(x.shape), mesh, fsdp,
+                                   tied=cfg.tie_embeddings), params)
+
+
+def zero1_spec(spec: PartitionSpec, shape: Tuple[int, ...],
+               mesh) -> PartitionSpec:
+    """Add "data" sharding to the first replicated, divisible dim
+    (ZeRO-1)."""
+    if "data" not in axis_names(mesh):
+        return spec
+    used = set()
+    for s in spec:
+        used.update(_axes_of(s))
+    if "data" in used:
+        return spec
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, s) in enumerate(zip(shape, parts)):
+        if s is None and _fits(dim, mesh, "data"):
+            parts[i] = "data"
+            return P(*parts)
+    return spec
+
+
+def opt_pspecs(cfg: ModelConfig, params: Any, mesh) -> Any:
+    """The AdamW moments' specs: each parameter's, plus ZeRO-1 over
+    "data"."""
+    base = param_pspecs(cfg, params, mesh)
+    return tree_map(lambda x, s: zero1_spec(s, tuple(x.shape), mesh),
+                    params, base)
+
+
+def batch_pspecs(batch: Dict[str, Any], mesh) -> Dict[str, PartitionSpec]:
+    ba = batch_axes(mesh)
+    sizes = axis_sizes(mesh)
+    out = {}
+    for k, v in batch.items():
+        dims = len(v.shape)
+        b = v.shape[0]
+        ax = ba if (ba and b % int(np.prod([sizes[a] for a in ba])) == 0) \
+            else None
+        out[k] = P(*((ax,) + (None,) * (dims - 1)))
+    return out
+
+
+def cache_pspecs(cfg: ModelConfig, cache: Any, mesh, seq_len: int) -> Any:
+    """KV cache: [L, B, S, ...] -> B on ("pod","data"), S on "model";
+    recurrent states: channel/head dims on "model"."""
+    ba = batch_axes(mesh)
+    sizes = axis_sizes(mesh)
+    nb = int(np.prod([sizes[a] for a in ba])) if ba else 1
+
+    def spec(path, x):
+        name = path.split("/")[-1]
+        shape = tuple(x.shape)
+        b_ax = ba if (len(shape) > 1 and shape[1] % max(nb, 1) == 0
+                      and ba) else None
+        if name in ("k", "v"):            # [L,B,S,KV,hd]
+            s_ax = "model" if _fits(shape[2], mesh, "model") else None
+            return P(None, b_ax, s_ax, None, None)
+        if name in ("c_kv", "k_rope"):    # [L,B,S,r]
+            s_ax = "model" if _fits(shape[2], mesh, "model") else None
+            return P(None, b_ax, s_ax, None)
+        if name == "wkv":                 # [L,B,H,n,n]
+            h_ax = "model" if _fits(shape[2], mesh, "model") else None
+            return P(None, b_ax, h_ax, None, None)
+        if name == "h":                   # [L,B,di,N]
+            d_ax = "model" if _fits(shape[2], mesh, "model") else None
+            return P(None, b_ax, d_ax, None)
+        if name == "conv":                # [L,B,K,di]
+            d_ax = "model" if _fits(shape[3], mesh, "model") else None
+            return P(None, b_ax, None, d_ax)
+        if name in ("tm_x", "cm_x"):      # [L,B,d]
+            d_ax = "model" if _fits(shape[2], mesh, "model") else None
+            return P(None, b_ax, d_ax)
+        return P(*([None] * len(shape)))
+
+    return _map_with_path(spec, cache)
+
+
+def named(tree_specs: Any, mesh) -> Any:
+    """A :class:`NamedSharding` for each spec of the tree; place a tree on
+    the mesh with ``tree_map(lambda x, s: s.distribute(x), tree,
+    named(specs, mesh))``."""
+    return tree_map(lambda s: NamedSharding(mesh, s), tree_specs)
+
+
+def constrain(x, spec: PartitionSpec):
+    """The reference's ``with_sharding_constraint`` on the ambient mesh: a
+    DTensor on that mesh is redistributed to ``spec``; anything else (a
+    plain tensor, another mesh, no ambient mesh) comes back as it is."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.compat import get_abstract_mesh
+
+    mesh = get_abstract_mesh()
+    if mesh is None or not isinstance(x, DTensor) or x.device_mesh != mesh:
+        return x
+    want = NamedSharding(mesh, spec).placements()
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)

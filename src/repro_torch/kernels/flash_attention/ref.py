@@ -92,3 +92,46 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dk = dk.reshape(B, S, KV, H // KV, hd).sum(3)
     dv = dv.reshape(B, S, KV, H // KV, hd).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_block_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                  atol: float, rows: int = 64, row_bound=None) -> float:
+    """The gate that holds a backward kernel's dq, dk or dv against this
+    oracle's: the largest ||got - want|| / (rtol·||want|| + atol·√n) over
+    the blocks of ``rows`` sequence rows (n elements) of each batch row
+    and head of two [B, S, heads, hd] tensors, at most 1 where every block
+    is within its limit.  A tile-sized block holds the late rows, whose
+    gradients are small, as tightly as the early ones.  ``row_bound``
+    ([B, S, heads], e.g. :func:`bwd_cancel_bound`'s) replaces the atol
+    term by the block's rows' bounds in quadrature."""
+    B, S, Hh, hd = want.shape
+    n = -(-S // rows)
+    x = want.float().new_zeros((3, B, n * rows, Hh, hd))
+    x[0, :, :S] = got.float() - want.float()
+    x[1, :, :S] = want.float()
+    if row_bound is not None:
+        x[2, :, :S, :, 0] = row_bound
+    d, w, r = x.reshape(3, B, n, rows, Hh, hd).square().sum((3, 5)).sqrt()
+    if row_bound is None:
+        r = atol * (rows * hd) ** 0.5
+    return float((d / (rtol * w + r)).max())
+
+
+def bwd_cancel_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor):
+    """At window 1 (P = 1), the float32 rounding that two evaluations of
+    each row's dS = dP - D may differ by: each side sums the same hd terms
+    dO_d·V_d twice (dP and D), which cancel, and each sum rounds by about
+    u·Σ_d |dO_d·V_d| (u = ε/2), so four such errors bound the difference,
+    2ε·Σ_d |dO_d·V_d|.  It is carried into dQ by |K_i|·scale and into dK
+    by |Q_i|·scale summed over the key's query heads.  Returns the per-row
+    bounds ([B, S, H] for dQ, [B, S, KV] for dK)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    eps = torch.finfo(torch.float32).eps
+    scale = hd ** -0.5
+    c = 2 * (dout.float() * v.float().repeat_interleave(G, dim=2)
+             ).abs().sum(-1)
+    dq = eps * c * k.float().repeat_interleave(G, dim=2).norm(dim=-1) * scale
+    dk = (eps * c * q.float().norm(dim=-1) * scale).view(B, S, -1, G).sum(-1)
+    return dq, dk

@@ -7,8 +7,11 @@ with ``--device cpu`` (plain tensor code throughout).  The MB-scheduler
 features run for real: each step the data plan assigns microbatch counts
 per rank in proportion to measured throughput; injected faults trigger
 re-planning.  Checkpoints are the reference's format and keys, so a run
-restores the other package's checkpoint.  The reference's gradient
-compression waits for the port's collectives (ROADMAP item 6.5.1).
+restores the other package's checkpoint.  There is no gradient
+compression path: the reference's trainer has none either (its docstring
+promises one, but nothing in it reaches ``optim/compression.py``); the
+compression and the collectives are ``optim/compression.py`` and
+``distributed/collectives.py``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \
       --smoke --steps 50 --ckpt-dir /tmp/ckpt --restore [--device cpu]

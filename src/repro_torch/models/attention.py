@@ -151,15 +151,16 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def gqa_forward(p: Params, cfg, x: torch.Tensor, window: int,
                 positions=None) -> torch.Tensor:
-    if cfg.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel shards a mesh axis; the meshes and "
-            "collectives it needs (distributed/meshes.py) are ROADMAP "
-            "item 6.5.1")
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.sequence_parallel:
+        # keep q's SEQUENCE dim sharded on "model" through the attention
+        # (kv replicated): head sharding degenerates to replication where
+        # n_heads does not divide the TP degree (hymba's 25), S divides
+        from repro_torch.models.layers import sequence_shard
+        q = sequence_shard(q)
     out = attention_full(q, k, v, cfg, window)
     return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
 

@@ -24,6 +24,29 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def sequence_shard(x: torch.Tensor) -> torch.Tensor:
+    """Sequence-parallel sharding hint (Korthikanti et al.): between
+    blocks, activations [B, S, ...] are sharded on ("pod","data") × batch
+    and "model" × sequence.  Under a mesh context a DTensor on the ambient
+    mesh is redistributed to that spec; outside one, on a plain tensor,
+    for rank < 3, a mesh without "model" or batch axes, or dims that do not
+    divide, ``x`` comes back as it is."""
+    from repro_torch.core.compat import axis_sizes, get_abstract_mesh
+    from repro_torch.distributed.meshes import P, batch_axes, constrain
+
+    mesh = get_abstract_mesh()
+    if mesh is None or x.dim() < 3:
+        return x
+    sizes = axis_sizes(mesh)
+    batch_ax = batch_axes(mesh)
+    if "model" not in sizes or not batch_ax:
+        return x
+    bsz = math.prod(sizes[a] for a in batch_ax)
+    if x.shape[0] % bsz != 0 or x.shape[1] % sizes["model"] != 0:
+        return x
+    return constrain(x, P(batch_ax, "model", *([None] * (x.dim() - 2))))
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------

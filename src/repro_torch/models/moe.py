@@ -30,6 +30,23 @@ import torch.nn.functional as F
 from repro_torch.models.layers import Params, dense_init, mlp, mlp_init
 
 
+def _expert_shard(x_t: torch.Tensor) -> torch.Tensor:
+    """Sharding hint for [E, B, C, d] (expert-major) dispatch tensors: E on
+    the expert-parallel axis ("data"), matching the expert weights.  Under
+    a mesh context a DTensor on the ambient mesh is redistributed to it;
+    outside one, on a plain tensor, or where E does not divide, ``x_t``
+    comes back as it is."""
+    from repro_torch.core.compat import axis_sizes, get_abstract_mesh
+    from repro_torch.distributed.meshes import P, constrain
+
+    mesh = get_abstract_mesh()
+    if mesh is None or "data" not in axis_sizes(mesh):
+        return x_t
+    if x_t.shape[0] % axis_sizes(mesh)["data"] != 0:
+        return x_t
+    return constrain(x_t, P("data", None, None, None))
+
+
 def moe_capacity(seq_len: int, n_experts: int, top_k: int,
                  capacity_factor: float) -> int:
     c = math.ceil(seq_len * top_k / n_experts * capacity_factor)
@@ -117,9 +134,13 @@ def moe_forward(p: Params, cfg, x: torch.Tensor
 
     # -- gather -> expert SwiGLU -> weight -----------------------------------
     x_e = torch.gather(x, 1, idx[..., None].expand(-1, -1, d))  # [B, E*C, d]
-    x_t = x_e.view(B, E, C, d).transpose(0, 1).reshape(E, B * C, d)
+    # token -> expert routing as a transpose of the two sharded dims,
+    # (B@data, E, C, d) -> (E@data, B, C, d), hinted where each crosses
+    x_t = _expert_shard(x_e.view(B, E, C, d).transpose(0, 1))
+    x_t = x_t.reshape(E, B * C, d)
     h = F.silu(torch.bmm(x_t, p["w_gate"])) * torch.bmm(x_t, p["w_up"])
-    y_e = torch.bmm(h, p["w_down"]).view(E, B, C, d).transpose(0, 1)
+    y_t = _expert_shard(torch.bmm(h, p["w_down"]).view(E, B, C, d))
+    y_e = y_t.transpose(0, 1)
     y_e = (y_e * w[..., None].to(y_e.dtype)).reshape(B, E * C, d)
 
     # -- combine: each token's kept slots, by ascending expert ---------------

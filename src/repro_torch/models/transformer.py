@@ -44,7 +44,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stubs
 from repro_torch.models.layers import (Params, chunked_softmax_xent,
                                        dtype_of, embed_init, mlp, mlp_init,
-                                       rmsnorm, rmsnorm_init, softmax_xent)
+                                       rmsnorm, rmsnorm_init, sequence_shard,
+                                       softmax_xent)
 
 REMAT_POLICIES = ("none", "full", "dots", "names")
 
@@ -267,7 +268,11 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor
     run = _remat(cfg)
     aux = 0.0
     for i, w in enumerate(windows[n_dense:]):
+        if cfg.sequence_parallel:
+            x = sequence_shard(x)
         x, a = run(_block_full, cfg, _layer(params["layers"], i), x, w)
+        if cfg.sequence_parallel:
+            x = sequence_shard(x)
         aux = aux + a
     return rmsnorm(params["final_ln"], x, cfg.rms_eps), aux
 

@@ -10,7 +10,8 @@ builds new moment trees, :func:`adamw_update` writes the same values into
 the state's moment tensors in place and walks the tree a leaf at a time,
 so a step holds one leaf's temporaries and not a second copy of every
 moment.  The reference's ZeRO-1 sharding of the moments over a ``data``
-mesh axis waits for the port's meshes (ROADMAP item 6.5.1).
+mesh axis is a sharding rule, ``distributed/meshes.opt_pspecs``, applied
+where the state is placed on a mesh; the update is the same.
 """
 from __future__ import annotations
 

@@ -214,3 +214,31 @@ def test_gqa_gradient_sums_over_the_group():
                                atol=1e-6)
     torch.testing.assert_close(dv[:, :, 0], dv4.sum(2), rtol=1e-5,
                                atol=1e-6)
+
+
+# the gate phase 16a and the card tests hold the backward kernel to,
+# checked here on the plain backward: at window 1, where dQ and dK are
+# exactly 0 (P = 1, dS = dP - D = 0) and float32 leaves only the rounding
+# of that cancellation, which ``bwd_cancel_bound`` bounds row by row; a
+# skipped 64-row tile of dV must fail the block gate
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 200, 4, 1, 256),
+                                         (1, 200, 4, 2, 128),
+                                         (1, 200, 4, 4, 64)])
+def test_window_one_gate_on_the_plain_backward(B, S, H, KV, hd):
+    from repro_torch.kernels.flash_attention.ref import (bwd_block_err,
+                                                         bwd_cancel_bound)
+    _, (q, k, v, g) = _inputs(B, S, H, KV, hd, "float32", S + hd)
+    out = flash_attention_ref(q, k, v, window=1)
+    lse = flash_attention_lse_ref(q, k, window=1)
+    dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, g, window=1)
+    dq_rows, dk_rows = bwd_cancel_bound(q, k, v, g)
+    assert dq_rows.shape == (B, S, H) and dk_rows.shape == (B, S, KV)
+    for got, rows in ((dq, dq_rows), (dk, dk_rows)):
+        assert bwd_block_err(got, torch.zeros_like(got), 1e-5, 0.0,
+                             row_bound=rows) <= 1
+    # at window 1 dV is each query's dO summed over its key's group
+    want = g.reshape(B, S, KV, H // KV, hd).sum(3)
+    assert bwd_block_err(dv, want, 1e-5, 1e-7) <= 1
+    skipped = dv.clone()
+    skipped[:, 64:128] = 0
+    assert bwd_block_err(skipped, want, 1e-5, 1e-7) > 1

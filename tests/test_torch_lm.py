@@ -358,8 +358,23 @@ def test_unported_branches_raise(change, match):
 
 
 def test_sequence_parallel_raises(carried32):
-    _, cfg, _, params = carried32
-    x = torch.zeros((1, 4, cfg.d_model))
-    p = {k: v[0] for k, v in params["layers"]["attn"].items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6.5"):
-        attention.gqa_forward(p, cfg.replace(sequence_parallel=True), x, 0)
+    """``sequence_parallel=True`` once raised here; since the meshes were
+    ported it runs and, outside a mesh context (the hint is the identity
+    there, as the reference's is), equals the reference's GQA forward and
+    prefill logits and its own run without the flag."""
+    ref_cfg, cfg, ref_params, params = carried32
+    ref_sp, sp = (c.replace(sequence_parallel=True) for c in (ref_cfg, cfg))
+    jp, p = _layer0(ref_params, params, "attn")
+    jx, x = _normal((2, 40, 64), 8)
+    got = attention.gqa_forward(p, sp, x, 16)
+    np.testing.assert_allclose(
+        _np(got), _np(ref_attn.gqa_forward(jp, ref_sp, jx, 16)), atol=ATOL)
+    assert torch.equal(got, attention.gqa_forward(p, cfg, x, 16))
+    toks = _tokens(cfg, 2, 40)
+    want = ref_steps.make_prefill_step(ref_sp)(
+        ref_params, {"tokens": jnp.asarray(toks)})
+    got = steps.make_prefill_step(sp)(params,
+                                      {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(_np(got), _np(want), atol=LOGITS_ATOL)
+    assert torch.equal(got, steps.make_prefill_step(cfg)(
+        params, {"tokens": torch.from_numpy(toks)}))

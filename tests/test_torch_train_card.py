@@ -23,7 +23,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -32,17 +32,9 @@ TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (1e-2, 1e-5)}
 
 
 def _block_err(got, want, dtype, rows=64):
-    """The largest ||got - want|| / (rtol·||want|| + atol·√n) over blocks
-    of ``rows`` sequence rows (n elements) of each batch row and head: at
-    most 1 where every block is within ``TOL[dtype]``."""
-    rtol, atol = TOL[dtype]
-    B, S, Hh, hd = want.shape
-    n = -(-S // rows)
-    x = want.float().new_zeros((2, B, n * rows, Hh, hd))
-    x[0, :, :S] = got.float() - want.float()
-    x[1, :, :S] = want.float()
-    d, w = x.reshape(2, B, n, rows, Hh, hd).square().sum((3, 5)).sqrt()
-    return float((d / (rtol * w + atol * (rows * hd) ** 0.5)).max())
+    """The block gate (``ref.bwd_block_err``) at ``TOL[dtype]``: at most 1
+    where every block of ``rows`` rows is within it."""
+    return ref.bwd_block_err(got, want, *TOL[dtype], rows=rows)
 
 
 @pytest.fixture
@@ -86,7 +78,9 @@ CASES = [(2, 77, 4, 1, 16, 0), (1, 130, 4, 2, 32, 9), (1, 200, 8, 2, 64, 0),
 # A window of 1 leaves each query its own key: P = 1 and dS = dP - D = 0,
 # so dQ and dK are float32 rounding of that cancellation on both sides,
 # which the float32 gate's atol (sized for one cancelling row) does not
-# bound.  In bf16 the gate holds the Hopper kernels' masks at that edge.
+# bound.  In bf16 the gate holds the Hopper kernels' masks at that edge;
+# in float32 dQ and dK are held to the cancellation's size instead
+# (``ref.bwd_cancel_bound``) and dV to the gate.
 WINDOW_ONE = [(1, 200, 4, 1, 256, 1), (1, 200, 4, 2, 128, 1),
               (1, 200, 4, 4, 64, 1)]
 
@@ -103,6 +97,39 @@ def test_backward_kernel_matches_plain_version(card, B, S, H, KV, hd, win,
 @pytest.mark.parametrize("B,S,H,KV,hd,win", WINDOW_ONE)
 def test_backward_kernel_at_window_one(card, B, S, H, KV, hd, win):
     _check_backward(card, B, S, H, KV, hd, win, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,win", WINDOW_ONE)
+def test_backward_kernel_at_window_one_float32(card, B, S, H, KV, hd, win):
+    """Float32 at window 1: dQ and dK within rtol·||plain|| + the block's
+    cancellation bound, dV within the gate; a skipped tile (one 64-row
+    tile of dV, which at window 1 is that tile's whole contribution) must
+    fail it.  Two calls bit-identical."""
+    dtype = torch.float32
+    q, k, v, g = _inputs(card, B, S, H, KV, hd, dtype, S + hd + win)
+    out, lse = kernel.flash_attention_fwd(q, k, v, window=win,
+                                          return_lse=True)
+    out_p = kernel.flash_attention_plain(q, k, v, window=win)
+    lse_p = kernel.flash_attention_lse_plain(q, k, window=win)
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
+    again = kernel.flash_attention_bwd(q, k, v, out, lse, g, window=win)
+    want = kernel.flash_attention_bwd_plain(q, k, v, out_p, lse_p, g,
+                                            window=win)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    rtol, _ = TOL[dtype]
+    dq_rows, dk_rows = ref.bwd_cancel_bound(q, k, v, g)
+    assert ref.bwd_block_err(got[0], want[0], rtol, 0.0,
+                             row_bound=dq_rows) <= 1
+    assert ref.bwd_block_err(got[1], want[1], rtol, 0.0,
+                             row_bound=dk_rows) <= 1
+    assert _block_err(got[2], want[2], dtype) <= 1
+    skipped = got[2].clone()
+    t0 = S // 2 // 64 * 64
+    skipped[:, t0:t0 + 64] = 0
+    assert _block_err(skipped, want[2], dtype) > 1
 
 
 def _check_backward(card, B, S, H, KV, hd, win, dtype):
