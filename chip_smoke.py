@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. build all nine kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
+1. build all ten kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and print the build time;
 2. call each support-count kernel's wrapper at the shapes the mining main
    path gives it (one transaction tile × the k=2 candidate batch, and the
@@ -263,9 +263,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``GRANITE_TRAIN_LAYERS`` of its 40 layers for ``TRAIN_STEPS`` steps with
     the same counts; the smoke command line ``TRAIN_CLI`` (through
     ``launch.train.main``), whose mean loss over its last 5 steps must sit
-    more than 0.1 under its first 5's; and hymba-1.5b and rwkv6-7b, whose
-    train step must raise the ``NotImplementedError`` naming their ROADMAP
-    items;
+    more than 0.1 under its first 5's; rwkv6-7b, whose train step must
+    raise the ``NotImplementedError`` naming ROADMAP item 6.5.3; then
+    hymba-1.5b (16g-16i, ``scan_train_phase``): (g) the selective-scan
+    backward kernel (da, db, dC, dh0 from the forward's chunk
+    checkpoints) against its plain version in float32 at
+    ``SCAN_BWD_CASES`` (hymba's [4, 2048, 3200, 16] training shape and
+    ragged ones: T of 1, 17 and off the 16-step chunk, D·N off the
+    256-lane block, N 1 and 32, zero and nonzero h0 and dh_last), each
+    block of 64 steps within ``BWD_GATE``'s float32 limit, two calls
+    bit-identical, each planted fault (dh_last dropped, a chunk's h read
+    one step late) failing the gate, the forward's checkpoints within
+    1e-4 of the plain version's, and the kernel timed at the training
+    shape beside its plain version and its bound; (h) hymba-1.5b whole at
+    full width (bf16, ``remat_policy="full"``) for ``TRAIN_STEPS`` steps
+    of ``make_train_step`` on [4 x 2048] batches, requiring exactly 2
+    scan and 2 flash forward launches a layer a step, one scan backward
+    call (two launches) and one flash backward call (three) a layer a
+    step and no other kernel, finite losses, and a bit-identical second
+    run, printing step walls, tokens/s and peak memory; (i) one float32
+    hymba-1.5b step at ``HYMBA_F32_BATCH`` against the same step with the
+    plain scan under autograd, each leaf within ``TRAIN_F32_TOL`` of its
+    max |gradient|; the new parts' wall is printed;
 17. the parallel plane (``parallel_phase``): (a) one NCCL rank in this
     process (its CPU tensors through gloo) on a (1, 1) ("data", "model")
     mesh: gemma3-1b drawn whole at full width in bf16, its parameters
@@ -427,6 +446,22 @@ TRAIN_F32_TOL = 1e-5
 GRANITE_TRAIN_LAYERS = 8
 TRAIN_CLI = ["--arch", "gemma3-1b", "--smoke", "--steps", "30", "--batch",
              "8", "--seq", "64", "--lr", "3e-3", "--device", "cuda"]
+# hymba-1.5b's training (phase 16g-16i): the selective-scan backward's
+# cases (name, [B, T, D, N], nonzero h0, dh_last given), gated at
+# BWD_GATE["float32"] in blocks of BWD_GATE_ROWS steps, the first at the
+# training shape; the forward's checkpoints against the plain version's
+# (max abs, as phase 9 holds the forward); the float32 step's [batch x
+# tokens]
+SCAN_BWD_CASES = [("hymba-1.5b train", (4, 2048, 3200, 16), True, True),
+                  ("one step", (2, 1, 3200, 16), True, True),
+                  ("T 17", (2, 17, 300, 16), True, True),
+                  ("T off the chunk, D·N off the block", (2, 1000, 520, 16),
+                   True, True),
+                  ("N 1", (2, 77, 333, 1), True, True),
+                  ("N 32", (1, 129, 100, 32), True, True),
+                  ("zero h0, no dh_last", (2, 64, 256, 8), False, False)]
+SCAN_CKPT_TOL = 1e-4
+HYMBA_F32_BATCH = (1, 512)
 # float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
 FP32_FLOPS_PER_S = 67e12
 # the parallel plane (phase 17): gemma3-1b's backward on a short batch,
@@ -3029,6 +3064,111 @@ def bwd_window_one(torch, dev, gen) -> dict:
     return dict(gate=gate, planted=caught, atol_gate_dq=old)
 
 
+def scan_bwd_gate(torch, dev, gen, smi: str) -> dict:
+    """Phase 16g: the selective-scan backward kernel against its plain
+    version at ``SCAN_BWD_CASES``, in float32: the forward's checkpoints
+    within ``SCAN_CKPT_TOL`` of the plain version's; da, db, dC and dh0
+    each within ``BWD_GATE["float32"]`` in blocks of ``BWD_GATE_ROWS``
+    (``bwd_block_errs``), printed as fractions of their limits; two calls
+    bit-identical; each planted fault (``bwd_planted_faults``) failing the
+    gate.  Then the kernel timed at the training shape (the first case)
+    beside the plain version and its bound, and the forward with and
+    without checkpoints.  Returns the ``kernels`` line's row."""
+    from repro_torch.kernels.selective_scan import kernel as scan
+    from repro_torch.kernels.selective_scan.ref import (bwd_block_errs,
+                                                        bwd_planted_faults)
+    from repro_torch.launch.roofline import HBM_BW
+
+    rtol, atol = BWD_GATE["float32"]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    max_err, timed = 0.0, None
+    for name, (B, T, D, N), with_h0, with_dh in SCAN_BWD_CASES:
+        a = torch.exp(-torch.exp(randn(B, T, D, N, scale=0.5) - 1))
+        b, C = randn(B, T, D, N, scale=0.3), randn(B, T, N)
+        h0 = randn(B, D, N, scale=0.2) * with_h0
+        dy = randn(B, T, D)
+        dh_last = randn(B, D, N) if with_dh else None
+        label = f"selective_scan_bwd {name} {[B, T, D, N]}"
+        y, h_last, hck = scan.selective_scan_fwd(a, b, C, h0,
+                                                 checkpoints=True)
+        y_p, h_p, hck_p = scan.selective_scan_checkpoints_plain(a, b, C, h0)
+        ck_err = max(float((x - w).abs().max()) if x.numel() else 0.0
+                     for x, w in ((y, y_p), (h_last, h_p), (hck, hck_p)))
+        del y, h_last, y_p, h_p, hck_p
+        got = scan.selective_scan_bwd(a, b, C, h0, dy, dh_last,
+                                      checkpoints=hck)
+        again = scan.selective_scan_bwd(a, b, C, h0, dy, dh_last,
+                                        checkpoints=hck)
+        want = scan.selective_scan_bwd_plain(a, b, C, h0, dy, dh_last)
+        torch.cuda.synchronize()
+        for x, x2, w, part in zip(got, again, want, ("da", "db", "dC",
+                                                    "dh0")):
+            if not torch.equal(x, x2):
+                raise AssertionError(f"{label}: {part} differs between two "
+                                     "calls")
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"{label}: {part} is not finite")
+        del again
+        errs = [float((x - w).abs().max()) for x, w in zip(got, want)]
+        gate = bwd_block_errs(got, want, rtol, atol, BWD_GATE_ROWS)
+        caught = {k: max(bwd_block_errs(f, want, rtol, atol, BWD_GATE_ROWS))
+                  for k, f in bwd_planted_faults(a, b, C, h0, dy, dh_last,
+                                                 got, want).items()}
+        max_err = max(max_err, *errs)
+        print(f"{label}: checkpoints, y and h_last at {ck_err:.3g} max abs "
+              f"(tolerance {SCAN_CKPT_TOL}); da/db/dC/dh0 at "
+              + "/".join(f"{g:.3g}" for g in gate)
+              + f" of their block limit ({rtol} x ||plain|| + {atol} x "
+              f"sqrt(n), blocks of {BWD_GATE_ROWS} steps), max abs err "
+              + "/".join(f"{e:.3g}" for e in errs) + "; planted faults at "
+              + ", ".join(f"{k} {v:.3g}" for k, v in caught.items())
+              + "; two calls bit-identical")
+        if ck_err > SCAN_CKPT_TOL or max(gate) > 1:
+            raise AssertionError(f"{label}: differs from the plain version")
+        if min(caught.values()) <= 1:
+            raise AssertionError(f"{label}: the gate passes a planted fault")
+        del got, want
+        if timed is None:
+            timed = (a, b, C, h0, dy, dh_last, hck)
+        else:
+            del a, b, C, h0, dy, dh_last, hck
+        torch.cuda.empty_cache()
+
+    a, b, C, h0, dy, dh_last, hck = timed
+    B, T, D, N = a.shape
+    elems = B * T * D * N
+    # read a, b, C, h0, dy, dh_last once, write da, db, dC, dh0 once
+    nbytes = 4 * (4 * elems + B * T * D + 2 * B * T * N + 3 * B * D * N)
+    flops = 8 * elems
+    bnd = {"bytes": nbytes / HBM_BW * 1e3,
+           "operations": flops / FP32_FLOPS_PER_S * 1e3}
+    by = max(bnd, key=bnd.get)
+    row = dict(
+        ms=_cuda_ms(torch, lambda: scan.selective_scan_bwd(
+            a, b, C, h0, dy, dh_last, checkpoints=hck)),
+        plain_ms=_cuda_ms(torch, lambda: scan.selective_scan_bwd_plain(
+            a, b, C, h0, dy, dh_last), reps=2, queued=False),
+        library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[B, T, D, N],
+        fwd_ms=_cuda_ms(torch, lambda: scan.selective_scan_fwd(a, b, C, h0)),
+        fwd_checkpoints_ms=_cuda_ms(torch, lambda: scan.selective_scan_fwd(
+            a, b, C, h0, checkpoints=True)),
+        max_abs_err=max_err)
+    print(f"selective_scan_bwd [{B}, {T}, {D}, {N}] float32: kernel "
+          f"{row['ms']:.4f} ms ({scan.BWD_LAUNCHES_PER_CALL} launches), plain "
+          f"{row['plain_ms']:.4f} ms (a Python loop over {T} steps each "
+          f"way), library none, bound {row['bound_ms']:.4f} ms ({by}; "
+          f"{nbytes} bytes, {flops:.3g} flops): the kernel at "
+          f"{row['ms'] / row['bound_ms']:.2f}x its bound; the forward "
+          f"{row['fwd_ms']:.4f} ms, with checkpoints "
+          f"{row['fwd_checkpoints_ms']:.4f} ms, on {smi}")
+    del timed, a, b, C, h0, dy, dh_last, hck
+    torch.cuda.empty_cache()
+    return row
+
+
 def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     """Phase 16: one-card training.  The flash backward kernel against its
     plain version and timed at the training shapes; gemma3-1b whole at
@@ -3036,9 +3176,12 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     with exact launch counts, a bit-identical repeat and a bit-identical
     resume from a checkpoint; one float32 step against the plain
     attention's; granite-3-8b at ``GRANITE_TRAIN_LAYERS`` of 40 layers; the
-    smoke CLI's falling loss; hybrid and rwkv refusing to train.  Returns
-    the backward kernel's row of the ``kernels`` line and the flash
-    forward's training launches."""
+    smoke CLI's falling loss; the selective-scan backward kernel against
+    its plain version (``scan_bwd_gate``), hymba-1.5b whole at full width
+    with exact launch counts and a bit-identical repeat, and one float32
+    hymba-1.5b step against the plain scan's; rwkv refusing to train.
+    Returns the two backward kernels' rows of the ``kernels`` line and the
+    forward kernels' training launches."""
     import tempfile
 
     import torch.nn.functional as F
@@ -3048,10 +3191,12 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import bwd_block_err
+    from repro_torch.kernels.selective_scan import kernel as scan
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
@@ -3218,6 +3363,12 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
         peak = torch.cuda.max_memory_allocated(dev)
         want = {"flash": 2 * cfg.n_layers * TRAIN_STEPS,
                 "flash_bwd": per_call * cfg.n_layers * TRAIN_STEPS}
+        if cfg.block_type == "hybrid":
+            # each layer's SSM scan: a forward launch, again recomputed,
+            # and one backward call
+            want.update(scan=2 * cfg.n_layers * TRAIN_STEPS,
+                        scan_bwd=scan.BWD_LAUNCHES_PER_CALL * cfg.n_layers
+                        * TRAIN_STEPS)
         if {k: on[k] for k in want} != want or any(
                 n_ for k, n_ in on.items() if k not in want):
             raise AssertionError(f"{label}: {TRAIN_STEPS} steps launched "
@@ -3239,7 +3390,11 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
               f"launches {on} (exactly {want['flash']} forward, "
               f"{want['flash'] // 2} of them recomputed, and "
               f"{want['flash_bwd']} backward, {per_call} a call; backward "
-              f"routes {bwd_routes}) on {smi}")
+              f"routes {bwd_routes}"
+              + (f"; {want['scan']} scan forward, half recomputed, and "
+                 f"{want['scan_bwd']} scan backward, "
+                 f"{scan.BWD_LAUNCHES_PER_CALL} a call"
+                 if "scan" in want else "") + f") on {smi}")
         return row, params, step, pipe, p, s
 
     # -- 16b: gemma3-1b whole, bf16: counts, repeat, resume ---------------
@@ -3393,22 +3548,131 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
           f"last 5 (falls by {first - last:.4f} > 0.1); {cli_s:.1f} s; "
           f"launches {on}")
 
-    # -- 16f: hybrid and rwkv refuse to train on the card ------------------
-    for arch, item in (("hymba-1.5b", "6.5.2"), ("rwkv6-7b", "6.5.3")):
-        c = get_config(arch, smoke=True)
-        p = T.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
-        b = {"tokens": torch.zeros((2, 16), dtype=torch.long, device=dev)}
-        try:
-            steps.make_train_step(c, adamw.AdamWConfig())(
-                p, adamw.init_opt_state(p), b)
-        except NotImplementedError as e:
-            if f"ROADMAP item {item}" not in str(e):
-                raise
-            print(f"{arch} on the card with grad enabled: "
-                  f"NotImplementedError ({e})")
-        else:
-            raise AssertionError(f"{arch} trained on the card without a "
-                                 "backward kernel")
+    # -- 16g: the selective-scan backward kernel against its plain version -
+    t_scan = time.perf_counter()
+    scan_row = scan_bwd_gate(torch, dev, gen, smi)
+
+    # -- 16h: hymba-1.5b whole, bf16: counts, repeat -----------------------
+    cfg_h = get_config("hymba-1.5b")
+    if cfg_h.remat_policy != "full":
+        raise AssertionError(f"hymba-1.5b's remat_policy "
+                             f"{cfg_h.remat_policy}")
+    hymba, params, step, pipe, pA, sA = counted_run(cfg_h, "hymba-1.5b")
+    if hymba["parameters"] != HYMBA_TREE_PARAMS:
+        raise AssertionError(f"hymba-1.5b: {hymba['parameters']} parameters,"
+                             f" not the reference tree's {HYMBA_TREE_PARAMS}")
+    pA, sA = to_host(pA), to_host(sA)
+    torch.cuda.empty_cache()
+    pB, sB, lossB, _ = run_steps(cfg_h, step, pipe, params,
+                                 adamw.init_opt_state(params), 0,
+                                 TRAIN_STEPS, B, S)
+    if lossB != hymba["losses"] or not tree_equal(pA, pB) or not (
+            tree_equal(sA, sB)):
+        raise AssertionError("hymba-1.5b: two runs from one state differ")
+    print(f"hymba-1.5b: a second run of {TRAIN_STEPS} steps gives "
+          "bit-identical losses, parameters and moments")
+    del pA, sA
+    # one more step under torch.profiler (after one untraced): its device
+    # time by kernel, the scan kernels' and the flash kernels' parts
+    batch = train_mod.make_batch_for(cfg_h, pipe, TRAIN_STEPS, B, S, dev)
+    traced = _kernel_ms(torch, lambda: step(pB, sB, batch), calls=1)
+    steady_ms = float(np.median(hymba["step_walls_s"][1:])) * 1e3
+    if traced:
+        kernel_ms = sum(traced.values())
+        scan_ms = {k: v for k, v in traced.items()
+                   if k.startswith("selective_scan")}
+        flash_ms = sum(v for k, v in traced.items()
+                       if k.startswith(("flash_attention", "flash_bwd")))
+        top = sorted(traced.items(), key=lambda kv: -kv[1])[:8]
+        hymba["traced_step"] = dict(kernel_ms=kernel_ms, scan_ms=scan_ms,
+                                    flash_ms=flash_ms, top_kernels=top)
+        print(f"hymba-1.5b traced step: {kernel_ms:.2f} ms of kernels "
+              f"(untraced step wall {steady_ms:.2f} ms); the scan kernels "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in scan_ms.items())
+              + f" ({sum(scan_ms.values()) / kernel_ms:.1%} of the kernels)"
+              f", the flash kernels {flash_ms:.2f} ms; the largest: "
+              + ", ".join(f"{n} {v:.2f} ms" for n, v in top))
+    else:
+        hymba["traced_step"] = "not measured"
+        print("hymba-1.5b traced step: not measured (no kernel in the "
+              "trace)")
+    del pB, sB, params, step, batch
+    torch.cuda.empty_cache()
+
+    # -- 16i: one float32 hymba-1.5b step against the plain scan's ---------
+    cfg_h32 = cfg_h.replace(param_dtype="float32", activ_dtype="float32")
+    p32 = T.init_params(cfg_h32, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+    Bh, Sh = HYMBA_F32_BATCH
+    pipe32 = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg_h32.vocab_size, seq_len=Sh, global_batch=Bh, seed=0))
+    batch32 = train_mod.make_batch_for(cfg_h32, pipe32, 0, Bh, Sh, dev)
+    L = cfg_h32.n_layers
+    zero_counts()
+    loss_k, g_k = steps._loss_and_grads(cfg_h32, p32, batch32)
+    torch.cuda.synchronize()
+    on_k = read_counts()
+    want_k = {"flash": 2 * L, "flash_bwd": per_call * L, "scan": 2 * L,
+              "scan_bwd": scan.BWD_LAUNCHES_PER_CALL * L}
+    if {k: n_ for k, n_ in on_k.items() if n_} != want_k:
+        raise AssertionError(f"the float32 hymba step launched {on_k}; want "
+                             f"{want_k}")
+
+    def plain_scan(a, b, C, h0):
+        return scan.selective_scan_plain(a, b, C, h0)
+
+    zero_counts()
+    with mock.patch.object(ssm, "selective_scan", plain_scan):
+        loss_p, g_p = steps._loss_and_grads(cfg_h32, p32, batch32)
+    torch.cuda.synchronize()
+    on_p = read_counts()
+    if on_p["scan"] or on_p["scan_bwd"]:
+        raise AssertionError(f"the plain-scan step launched {on_p}")
+    worst, worst_leaf = 0.0, ""
+    for (path, a), b_ in zip(store._paths(g_k), adamw.tree_leaves(g_p)):
+        rel = float((a - b_).abs().max()) / max(float(b_.abs().max()),
+                                                1e-30)
+        if rel > TRAIN_F32_TOL:
+            raise AssertionError(f"float32 hymba step: {'/'.join(path)} "
+                                 f"differs by {rel:.3g} of its max "
+                                 "|gradient|")
+        if rel > worst:
+            worst, worst_leaf = rel, "/".join(path)
+    hymba_f32 = dict(batch=[Bh, Sh], loss_kernel=float(loss_k),
+                     loss_plain=float(loss_p), worst_leaf_rel=worst,
+                     worst_leaf=worst_leaf, tolerance=TRAIN_F32_TOL)
+    print(f"hymba-1.5b float32 step [{Bh} x {Sh}]: loss {float(loss_k):.6f} "
+          f"with the scan kernels, {float(loss_p):.6f} with the plain scan "
+          f"under autograd; gradients within {worst:.3g} of each leaf's max "
+          f"|gradient| (worst {worst_leaf}; tolerance {TRAIN_F32_TOL}); "
+          f"launches {on_k}, plain {on_p}")
+    del p32, g_k, g_p, batch32
+    torch.cuda.empty_cache()
+    scan_wall = time.perf_counter() - t_scan
+    print(f"phase 16g-16i (hymba-1.5b training) wall {scan_wall:.1f} s")
+    # -- 16f: rwkv refuses to train on the card ---------------------------
+    c = get_config("rwkv6-7b", smoke=True)
+    p = T.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
+    b = {"tokens": torch.zeros((2, 16), dtype=torch.long, device=dev)}
+    try:
+        steps.make_train_step(c, adamw.AdamWConfig())(
+            p, adamw.init_opt_state(p), b)
+    except NotImplementedError as e:
+        if "ROADMAP item 6.5.3" not in str(e):
+            raise
+        print(f"rwkv6-7b on the card with grad enabled: "
+              f"NotImplementedError ({e})")
+    else:
+        raise AssertionError("rwkv6-7b trained on the card without a "
+                             "backward kernel")
+    del c, p, b
+    torch.cuda.empty_cache()
+
+    scan_row.update(
+        launches=hymba["launches"]["scan_bwd"],
+        launches_per_step=scan.BWD_LAUNCHES_PER_CALL * cfg_h.n_layers,
+        train=dict(hymba_1_5b=hymba, float32_step=hymba_f32,
+                   wall_s=scan_wall))
 
     row = dict(timing["gemma3-1b window 512"])
     row.update(window0=timing["gemma3-1b window 0"],
@@ -3421,7 +3685,9 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                max_abs_err=max_err,
                train=dict(gemma3_1b=gemma, float32_step=f32_row,
                           granite_3_8b=granite, smoke_cli=cli_row))
-    return dict(bwd=row, fwd_train_launches_per_step=2 * cfg.n_layers)
+    return dict(bwd=row, fwd_train_launches_per_step=2 * cfg.n_layers,
+                scan_bwd=scan_row,
+                scan_train_launches_per_step=2 * cfg_h.n_layers)
 
 
 def _leaf_draw(torch, shape, dev, rank: int):
@@ -3959,12 +4225,14 @@ def main() -> int:
                 "flash": flash.flash_attention_fwd,
                 "flash_bwd": flash.flash_attention_bwd,
                 "scan": scan.selective_scan_fwd,
+                "scan_bwd": scan.selective_scan_bwd,
                 "wkv": wkv.wkv6_fwd}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
         flash.zero_launches()
+        scan.zero_launches()
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -3980,7 +4248,8 @@ def main() -> int:
     logs = loader.build(["support_count_packed", "support_count_int8",
                          "rule_match_packed", "rule_match_int8",
                          "intersect_count", "flash_attention",
-                         "flash_attention_bwd", "selective_scan", "wkv6"])
+                         "flash_attention_bwd", "selective_scan",
+                         "selective_scan_bwd", "wkv6"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -4786,16 +5055,28 @@ def main() -> int:
           + json.dumps(fam["family_walls"]))
     timing["flash"].update(fam)
 
-    # ---- 16. one-card training (gemma3-1b whole, granite-3-8b cut) -----
+    # ---- 16. one-card training (gemma3-1b and hymba-1.5b whole, ------
+    # ---- granite-3-8b cut) ----------------------------------------------
     trained = train_phase(torch, np, dev, zero_counts, read_counts)
     timing["flash_bwd"] = trained["bwd"]
     launches["flash_bwd"] = timing["flash_bwd"].pop("launches")
     err["flash_bwd"] = timing["flash_bwd"].pop("max_abs_err")
     timing["flash"]["train_launches_per_step"] = trained[
         "fwd_train_launches_per_step"]
+    timing["scan_bwd"] = trained["scan_bwd"]
+    launches["scan_bwd"] = timing["scan_bwd"].pop("launches")
+    err["scan_bwd"] = timing["scan_bwd"].pop("max_abs_err")
+    timing["scan"]["train_launches_per_step"] = trained[
+        "scan_train_launches_per_step"]
     print(f"training on {_nvidia_smi('name,power.limit')}: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
          for k, v in timing["flash_bwd"]["train"].items()}))
+    hymba_train = timing["scan_bwd"]["train"]
+    print(f"hymba-1.5b training on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps({"hymba_1_5b": {
+              k: v for k, v in hymba_train["hymba_1_5b"].items()
+              if k != "losses"}, "float32_step": hymba_train["float32_step"],
+              "wall_s": hymba_train["wall_s"]}))
 
     # ---- 17. the parallel plane ----------------------------------------
     t0 = time.perf_counter()
@@ -4833,7 +5114,10 @@ def main() -> int:
              "src/repro_torch/csrc/selective_scan.cu",
              "src/repro/kernels/selective_scan/kernel.py:77"),
             ("wkv", "wkv6", "src/repro_torch/csrc/wkv6.cu",
-             "src/repro/kernels/rwkv6_wkv/kernel.py:87")):
+             "src/repro/kernels/rwkv6_wkv/kernel.py:87"),
+            ("scan_bwd", "selective_scan_bwd",
+             "src/repro_torch/csrc/selective_scan_bwd.cu",
+             "src/repro/models/ssm.py:118")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))
@@ -4843,6 +5127,11 @@ def main() -> int:
                 "checkpointed chunked attention with jax.value_and_grad; "
                 "this kernel is the gradient of row flash_attention's "
                 "function")
+        if key == "scan_bwd":
+            rows[-1]["note"] = (
+                "no Pallas backward: the reference differentiates its "
+                "lax.scan over time with jax.value_and_grad; this kernel "
+                "is the gradient of row selective_scan's function")
         if rows[-1]["ms"] < 0.01:
             rows[-1]["launch_floor_ms"] = floor_ms
         rows[-1]["apriori_launches"] = clis["apriori_launches"].get(key, 0)

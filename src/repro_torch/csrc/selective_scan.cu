@@ -9,6 +9,10 @@
 //
 // with h_{-1} = h0, returning y [B, T, D] and h_last = h_{T-1} [B, D, N], all
 // float32.  a, b are [B, T, D, N], C is [B, T, N], h0 [B, D, N], contiguous.
+// For training, a non-null hck [B, ceil(T / kScanChunk), D, N] also gets the
+// state entering each chunk of kScanChunk steps (hck[:, 0] = h0), from
+// which selective_scan_bwd.cu recomputes h; serving passes null and moves
+// no more bytes.
 //
 // Bound: bytes.  Every value of a and b is read once for one multiply-add,
 // so the kernel moves 2*B*T*D*N*4 bytes for 4*B*T*D*N flops.  At
@@ -38,10 +42,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "selective_scan.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSteps = 16;           // steps of a, b, C loaded ahead
+constexpr int kSteps = kScanChunk;   // steps of a, b, C loaded ahead
 
 template <int N>
 __global__ void __launch_bounds__(kThreads)
@@ -50,7 +56,8 @@ selective_scan_kernel(const float* __restrict__ a,
                       const float* __restrict__ C,
                       const float* __restrict__ h0,
                       float* __restrict__ y,
-                      float* __restrict__ h_last, int T, int D) {
+                      float* __restrict__ h_last,
+                      float* __restrict__ hck, int T, int D) {
   const int DN = D * N;
   const int lane = blockIdx.x * kThreads + threadIdx.x;   // d * N + n
   const int bi = blockIdx.y;
@@ -63,9 +70,13 @@ selective_scan_kernel(const float* __restrict__ a,
   const float* pb = b + seq * DN + lane;
   const float* pc = C + seq * N + n;
   float* py = y + seq * D + d;
+  const size_t n_ck = (static_cast<size_t>(T) + kSteps - 1) / kSteps;
+  float* pck = hck ? hck + static_cast<size_t>(bi) * n_ck * DN + lane
+                   : nullptr;
 
   float h = valid ? h0[state] : 0.0f;
   for (int t0 = 0; t0 < T; t0 += kSteps) {
+    if (pck && valid) pck[static_cast<size_t>(t0 / kSteps) * DN] = h;
     float ra[kSteps], rb[kSteps], rc[kSteps];
 #pragma unroll
     for (int j = 0; j < kSteps; ++j) {
@@ -97,30 +108,33 @@ selective_scan_kernel(const float* __restrict__ a,
 
 template <int N>
 int launch(const void* a, const void* b, const void* C, const void* h0,
-           void* y, void* h_last, int B, int T, int D, cudaStream_t s) {
+           void* y, void* h_last, void* hck, int B, int T, int D,
+           cudaStream_t s) {
   const dim3 grid((D * N + kThreads - 1) / kThreads, B);
   selective_scan_kernel<N><<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(C), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(h_last), T, D);
+      static_cast<float*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(hck), T, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// N must divide 32 (the wrapper checks); any other N is refused.
+// N must divide 32 (the wrapper checks); any other N is refused.  hck may
+// be null (serving).
 extern "C" int selective_scan_launch(const void* a, const void* b,
                                      const void* C, const void* h0, void* y,
-                                     void* h_last, int B, int T, int D, int N,
-                                     void* stream) {
+                                     void* h_last, void* hck, int B, int T,
+                                     int D, int N, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (N) {
-    case 1: return launch<1>(a, b, C, h0, y, h_last, B, T, D, s);
-    case 2: return launch<2>(a, b, C, h0, y, h_last, B, T, D, s);
-    case 4: return launch<4>(a, b, C, h0, y, h_last, B, T, D, s);
-    case 8: return launch<8>(a, b, C, h0, y, h_last, B, T, D, s);
-    case 16: return launch<16>(a, b, C, h0, y, h_last, B, T, D, s);
-    case 32: return launch<32>(a, b, C, h0, y, h_last, B, T, D, s);
+    case 1: return launch<1>(a, b, C, h0, y, h_last, hck, B, T, D, s);
+    case 2: return launch<2>(a, b, C, h0, y, h_last, hck, B, T, D, s);
+    case 4: return launch<4>(a, b, C, h0, y, h_last, hck, B, T, D, s);
+    case 8: return launch<8>(a, b, C, h0, y, h_last, hck, B, T, D, s);
+    case 16: return launch<16>(a, b, C, h0, y, h_last, hck, B, T, D, s);
+    case 32: return launch<32>(a, b, C, h0, y, h_last, hck, B, T, D, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

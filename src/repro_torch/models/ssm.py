@@ -8,6 +8,9 @@ reference's kernel to its model: ``a = exp(dt·A)`` and ``b = dt·B·u`` are
 formed in float32 ([B, S, di, N] each), and the recurrence runs through
 :func:`repro_torch.kernels.selective_scan.ops.selective_scan` — the
 hand-written kernel on the card, its plain sequential version on the CPU.
+A full sequence trains through it: while autograd records, the forward
+kernel also stores its chunk checkpoints and the backward kernel gives
+the scan's gradient (the plain backward on the CPU).
 The reference's three ``ssm_impl`` forms (``scan``, ``associative``,
 ``chunked``) compute one function, so here all three take that path.  One
 token (decode) steps the state directly, in plain tensor code on either
@@ -77,12 +80,6 @@ def _selective_scan(u, dt, A, B, C, D, h0=None, impl: str = "scan"):
         h = a[:, 0] * h0.to(f32) + b[:, 0]
         y = torch.einsum("bdn,bn->bd", h, C[:, 0].to(f32))[:, None]
     else:
-        if (a.device.type == "cuda" and torch.is_grad_enabled()
-                and any(t.requires_grad for t in (a, b, C, h0))):
-            raise NotImplementedError(
-                "the selective-scan kernel has no backward yet: training "
-                "hymba-1.5b on the card is ROADMAP item 6.5.2 (a "
-                "selective_scan backward kernel)")
         y, h = selective_scan(a, b, C, h0)
     return y + D[None, None] * u.to(f32), h
 

@@ -20,7 +20,8 @@ INCLUDES = {
     "rule_match_int8": {"rule_match_wgmma.cuh", "sm90.cuh"},
     "rule_match_packed": {"rule_match_wgmma.cuh", "sm90.cuh"},
     "intersect_count": set(),
-    "selective_scan": set(),
+    "selective_scan": {"selective_scan.cuh"},
+    "selective_scan_bwd": {"selective_scan.cuh"},
 }
 
 
@@ -38,7 +39,8 @@ def test_every_source_is_listed():
 
 @pytest.mark.parametrize("header", ["sm90.cuh", "rule_match_wgmma.cuh",
                                     "support_count_wgmma.cuh",
-                                    "attention_sm90.cuh"])
+                                    "attention_sm90.cuh",
+                                    "selective_scan.cuh"])
 def test_a_header_edit_renames_only_its_includers(monkeypatch, tmp_path,
                                                   header):
     csrc = tmp_path / "csrc"

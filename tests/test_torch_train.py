@@ -11,7 +11,12 @@ port (``params_from_numpy``) and inputs drawn with numpy from a seed:
   different points; 30% for deepseek-v2-236b, whose MoE router sends a
   token to another expert where its bf16 input differs in the last bit at
   a near-tie of its top-k, 8 experts at the smoke width);
-* every ``remat_policy`` giving bit-equal gradients;
+* every ``remat_policy`` giving bit-equal gradients (hymba-1.5b's scan
+  through the selective-scan Function, recomputed under checkpointing);
+* hymba-1.5b's smoke training losses against the reference's ``train()``
+  (bf16, within 3e-2 absolute) and its ``ssm`` leaves' first-step
+  gradients against ``jax.value_and_grad`` (float32, 1e-4 of each leaf's
+  max |gradient|);
 * ``TokenPipeline`` batches bit-identical;
 * ``make_train_step`` at ``grad_accum`` 1 and 2 after 3 steps (float32:
   parameters within 1e-4 of each leaf's max |value| plus 1% of the
@@ -108,7 +113,8 @@ def test_model_loss_and_grads_match_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "dbrx-132b",
-                                  "deepseek-v2-236b", "internvl2-26b"])
+                                  "deepseek-v2-236b", "internvl2-26b",
+                                  "hymba-1.5b"])
 def test_every_remat_policy_gives_equal_gradients(arch):
     c = par.carry(arch, "float32")
     _, b = _batch(c.cfg, 2, 16)
@@ -197,7 +203,9 @@ def test_grad_accum_splits_rows_as_the_reference():
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
 def test_recurrent_blocks_train_on_the_cpu(arch):
-    """Their plain versions differentiate on the CPU (the card raises)."""
+    """Their plain versions differentiate on the CPU (hymba-1.5b's scan
+    through the selective-scan Function's plain backward; on the card
+    rwkv6-7b raises)."""
     c = par.carry(arch, "float32")
     _, b = _batch(c.cfg, 2, 12)
     step = steps.make_train_step(c.cfg, adamw.AdamWConfig(lr=1e-3))
@@ -222,6 +230,42 @@ def test_train_losses_match_reference():
     assert len(got["loss"]) == 6 and got["replans"] == want["replans"] == 0
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
                                atol=TRAIN_LOSS_ATOL)
+
+
+def test_train_losses_match_reference_hymba():
+    """hymba-1.5b's smoke config (bf16) trained 6 steps by both packages
+    from the reference's draw: the scan's gradient comes from the
+    selective-scan Function's plain backward here, from jax's autodiff of
+    its ``lax.scan`` there."""
+    kw = dict(steps=6, smoke=True, batch=4, seq=32, lr=3e-3, log_every=100)
+    want = ref_train.train("hymba-1.5b", **kw)
+    got = train.train("hymba-1.5b", device="cpu",
+                      params=_carried_smoke_params("hymba-1.5b"), **kw)
+    assert len(got["loss"]) == 6 and got["replans"] == want["replans"] == 0
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
+                               atol=TRAIN_LOSS_ATOL)
+
+
+def test_ssm_gradients_match_reference():
+    """hymba-1.5b's first-step gradients of every ``ssm`` leaf (float32)
+    against ``jax.value_and_grad`` of the reference's ``model_loss``: each
+    leaf's max |difference| within ``GRAD_TOL["float32"]`` of its max
+    |gradient|, and the loss within 1e-5 relative."""
+    c = par.carry("hymba-1.5b", "float32")
+    ref_b, b = _batch(c.cfg, 2, 24)
+    want, want_g = jax.jit(jax.value_and_grad(
+        lambda p: ref_T.model_loss(p, c.ref_cfg, ref_b)))(c.ref_params)
+    loss, grads = steps._loss_and_grads(c.cfg, c.params, b)
+    np.testing.assert_allclose(float(loss), float(want),
+                               rtol=LOSS_TOL["float32"])
+    got, ref = grads["layers"]["ssm"], want_g["layers"]["ssm"]
+    assert sorted(got) == sorted(ref)
+    for key in sorted(got):
+        w = np.asarray(ref[key], np.float32)
+        g = got[key].numpy()
+        assert g.shape == w.shape, key
+        err, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        assert err <= GRAD_TOL["float32"] * scale, (key, err, scale)
 
 
 def test_train_straggler_replans_as_the_reference(capsys):

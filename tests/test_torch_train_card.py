@@ -1,5 +1,6 @@
-"""One-card training on the card: the flash backward kernel against its
-plain version, and the launches a train step makes.
+"""One-card training on the card: the flash and selective-scan backward
+kernels against their plain versions, and the launches a train step
+makes.
 
 These tests need an NVIDIA card (marked ``cuda``; each skips where none is
 present) and import neither jax nor the reference:
@@ -14,8 +15,11 @@ a tile-sized block's: each block of 64 rows (n
 elements) of each batch row and head within rtol·||plain|| + atol·√n,
 (1e-5, 1e-7) in float32 and (1e-2, 1e-5) in bf16, with the plain backward
 fed the plain forward's output and ``lse``.  ``lse`` itself is held
-within 1e-5 relative and absolute.  Nothing here changes process-wide state: each
-model draws from its own generator.
+within 1e-5 relative and absolute.  The selective-scan backward runs in
+float32 on both sides and is held by the same gate at the float32
+tolerance, in blocks of 64 time steps (``scan_ref.bwd_block_errs``), its
+planted faults (``scan_ref.bwd_planted_faults``) failing it.  Nothing
+here changes process-wide state: each model draws from its own generator.
 """
 import numpy as np
 import pytest
@@ -24,6 +28,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.selective_scan import kernel as scan  # noqa: E402
+from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.selective_scan import ref as scan_ref  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -220,8 +227,133 @@ def test_train_step_launches_and_repeats(card, policy, fwd_per_layer):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,item", [("hymba-1.5b", "6.5.2"),
-                                       ("rwkv6-7b", "6.5.3")])
+@pytest.mark.parametrize("policy,fwd_per_layer", [("full", 2), ("none", 1)])
+def test_hybrid_train_step_launches_and_repeats(card, policy, fwd_per_layer):
+    """A hymba-1.5b smoke step: one scan and one flash forward launch a
+    layer (two under ``full``), one scan backward call (two launches) and
+    one flash backward call (three) a layer, and two runs from the same
+    state give bit-identical losses and parameters."""
+    cfg, params, batch = _smoke("hymba-1.5b", card, remat_policy=policy)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    runs = []
+    for _ in range(2):
+        p = adamw.tree_map(torch.clone, params)
+        kernel.zero_launches()
+        scan.zero_launches()
+        p, s, m = step(p, adamw.init_opt_state(p), batch)
+        torch.cuda.synchronize()
+        assert (scan.selective_scan_fwd.launches,
+                scan.selective_scan_bwd.launches,
+                kernel.flash_attention_fwd.launches,
+                kernel.flash_attention_bwd.launches) == (
+            fwd_per_layer * cfg.n_layers,
+            scan.BWD_LAUNCHES_PER_CALL * cfg.n_layers,
+            fwd_per_layer * cfg.n_layers,
+            kernel.BWD_LAUNCHES_PER_CALL * cfg.n_layers)
+        assert np.isfinite(float(m["loss"]))
+        runs.append((float(m["loss"]), p))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(adamw.tree_leaves(runs[0][1]),
+                    adamw.tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)
+
+
+def _scan_inputs(dev, B, T, D, N, seed, h0=True, dh_last=True):
+    """a ∈ (0, 1] as tests/test_kernels.py draws it, b, C, h0 (zeros when
+    not ``h0``), dy and dh_last (None when not ``dh_last``), float32."""
+    rng = np.random.default_rng(seed)
+    arrays = [np.exp(-np.exp(rng.standard_normal((B, T, D, N)) * 0.5 - 1)),
+              rng.standard_normal((B, T, D, N)) * 0.3,
+              rng.standard_normal((B, T, N)),
+              rng.standard_normal((B, D, N)) * 0.2 * h0,
+              rng.standard_normal((B, T, D)),
+              rng.standard_normal((B, D, N))]
+    out = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in arrays]
+    return out[:5] + [out[5] if dh_last else None]
+
+
+# (B, T, D, N, h0, dh_last): T of one step, 17, a non-multiple of the
+# 16-step chunk above it and a whole number of chunks; D·N off the 256-lane
+# block and on it; every state size; zero h0 and no dh_last
+SCAN_CASES = [(1, 1, 8, 16, True, True), (2, 17, 24, 16, True, True),
+              (2, 100, 50, 1, True, True), (1, 33, 41, 32, True, False),
+              (3, 64, 300, 8, False, True), (2, 48, 64, 4, True, True),
+              (1, 77, 100, 2, False, False), (2, 130, 160, 16, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,N,h0,dh", SCAN_CASES)
+def test_scan_backward_kernel_matches_plain_version(card, B, T, D, N, h0,
+                                                    dh):
+    """The forward's checkpoints within 1e-5 of the plain version's; the
+    backward kernel's four gradients within the float32 block gate of the
+    plain backward's, two calls bit-identical, each call two launches; each
+    planted fault fails the gate."""
+    a, b, C, h, dy, dh_last = _scan_inputs(card, B, T, D, N, T + D + N,
+                                           h0, dh)
+    rtol, atol = TOL[torch.float32]
+    fwd = scan.selective_scan_fwd.launches
+    y, h_last, hck = scan.selective_scan_fwd(a, b, C, h, checkpoints=True)
+    assert scan.selective_scan_fwd.launches == fwd + 1
+    y_p, h_p, hck_p = scan.selective_scan_checkpoints_plain(a, b, C, h)
+    for got, want in ((y, y_p), (h_last, h_p), (hck, hck_p)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    launches = scan.selective_scan_bwd.launches
+    got = scan.selective_scan_bwd(a, b, C, h, dy, dh_last, checkpoints=hck)
+    again = scan.selective_scan_bwd(a, b, C, h, dy, dh_last,
+                                    checkpoints=hck)
+    assert scan.selective_scan_bwd.launches == \
+        launches + 2 * scan.BWD_LAUNCHES_PER_CALL
+    want = scan.selective_scan_bwd_plain(a, b, C, h, dy, dh_last)
+    torch.cuda.synchronize()
+    for name, x, x2, w in zip(("da", "db", "dC", "dh0"), got, again, want):
+        assert x.shape == w.shape and x.dtype == w.dtype == torch.float32
+        assert torch.equal(x, x2), f"{name} differs between repeats"
+    errs = scan_ref.bwd_block_errs(got, want, rtol, atol)
+    assert max(errs) <= 1, errs
+    faults = scan_ref.bwd_planted_faults(a, b, C, h, dy, dh_last, got, want)
+    assert len(faults) == 1 + (dh_last is not None)
+    for name, faulty in faults.items():
+        assert max(scan_ref.bwd_block_errs(faulty, want, rtol, atol)) > 1, \
+            name
+
+
+@pytest.mark.cuda
+def test_scan_backward_kernel_at_no_steps(card):
+    """T = 0: no launch; da, db, dC empty, dh0 = dh_last."""
+    a, b, C, h, dy, dh_last = _scan_inputs(card, 2, 0, 8, 4, 0)
+    y, h_last, hck = scan.selective_scan_fwd(a, b, C, h, checkpoints=True)
+    assert hck.shape == (2, 0, 8, 4) and torch.equal(h_last, h)
+    launches = scan.selective_scan_bwd.launches
+    da, db, dC, dh0 = scan.selective_scan_bwd(a, b, C, h, dy, dh_last,
+                                              checkpoints=hck)
+    assert scan.selective_scan_bwd.launches == launches
+    assert da.shape == (2, 0, 8, 4) and dC.shape == (2, 0, 4)
+    assert torch.equal(dh0, dh_last)
+    with pytest.raises(ValueError, match="checkpoints"):
+        scan.selective_scan_bwd(a, b, C, h, dy, dh_last)
+
+
+@pytest.mark.cuda
+def test_scan_function_runs_both_kernels(card):
+    a, b, C, h, dy, dh_last = _scan_inputs(card, 2, 40, 24, 16, 1)
+    held = [x.clone().requires_grad_(True) for x in (a, b, C, h)]
+    scan.zero_launches()
+    y, h_last = scan_ops.selective_scan(*held)
+    assert scan.selective_scan_fwd.launches == 1
+    grads = torch.autograd.grad((y, h_last), held, (dy, dh_last))
+    assert scan.selective_scan_bwd.launches == scan.BWD_LAUNCHES_PER_CALL
+    want = scan.selective_scan_bwd_plain(a, b, C, h, dy, dh_last)
+    errs = scan_ref.bwd_block_errs(grads, want, *TOL[torch.float32])
+    assert max(errs) <= 1, errs
+    with torch.no_grad():
+        y2, _ = scan_ops.selective_scan(*held)
+    assert y2.grad_fn is None and scan.selective_scan_fwd.launches == 2
+    assert scan.selective_scan_bwd.launches == scan.BWD_LAUNCHES_PER_CALL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,item", [("rwkv6-7b", "6.5.3")])
 def test_recurrent_blocks_refuse_to_train_on_the_card(card, arch, item):
     cfg, params, batch = _smoke(arch, card)
     step = steps.make_train_step(cfg, adamw.AdamWConfig())
