@@ -125,14 +125,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    it at the prefill's shape beside the plain version and its bound;
    draw rwkv6-7b at full width (32 layers, d 4,096, 7,584,878,592
    parameters) in bf16 on the card and run ``make_prefill_step`` at
-   [4 x 2048] tokens, requiring exactly 32 wkv6 launches and no other, and
-   print its wall beside the time the host took to return from the call;
+   [4 x 2048] tokens, requiring exactly 32 wkv6 launches and no other
+   (no backward, no launch that writes checkpoints), and print its wall
+   beside the time the host took to return from the call;
    time one layer's time-mix inputs, WKV, group norm and output, and
    channel-mix; cast the weights to float32 and require the prefill's
    logits at [2 x 256] to match ``prefill_into_cache`` within a relative
    1e-3, with equal argmax tokens; run ``serve_demo("rwkv6-7b",
    smoke=False)`` twice and require identical in-range greedy tokens and
-   no kernel launch;
+   no kernel launch, no checkpoints written;
 11. the streaming plane: hold both support-count kernels exactly against
     their plain versions at the delta phase's shapes (slabs of 1, 5, 8,
     1,000 and 1,024 rows against the tracked sets of the stream's first
@@ -263,9 +264,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     ``GRANITE_TRAIN_LAYERS`` of its 40 layers for ``TRAIN_STEPS`` steps with
     the same counts; the smoke command line ``TRAIN_CLI`` (through
     ``launch.train.main``), whose mean loss over its last 5 steps must sit
-    more than 0.1 under its first 5's; rwkv6-7b, whose train step must
-    raise the ``NotImplementedError`` naming ROADMAP item 6.5.3; then
-    hymba-1.5b (16g-16i, ``scan_train_phase``): (g) the selective-scan
+    more than 0.1 under its first 5's; then hymba-1.5b (16g-16i,
+    ``scan_train_phase``): (g) the selective-scan
     backward kernel (da, db, dC, dh0 from the forward's chunk
     checkpoints) against its plain version in float32 at
     ``SCAN_BWD_CASES`` (hymba's [4, 2048, 3200, 16] training shape and
@@ -284,7 +284,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     run, printing step walls, tokens/s and peak memory; (i) one float32
     hymba-1.5b step at ``HYMBA_F32_BATCH`` against the same step with the
     plain scan under autograd, each leaf within ``TRAIN_F32_TOL`` of its
-    max |gradient|; the new parts' wall is printed;
+    max |gradient|; the new parts' wall is printed; then rwkv6-7b (16j-16l,
+    ``wkv_bwd_gate``): (j) the wkv6 backward kernel (dr, dk, dv, dw, du,
+    ds0 from the forward's chunk checkpoints) against its plain version
+    in float32 at ``WKV_BWD_CASES`` (rwkv6-7b's [4, 2048, 64, 64]
+    training shape, T of 1, 17 and 1,000, off the 16-step TMA stage and
+    the 8-step chunk, n 8, 16 and 32, zero s0 with no dS_T, strong decays
+    in (0.01, 0.5)), each block of 64 steps within ``BWD_GATE``'s float32
+    limit, two calls bit-identical, each planted fault (dS_T dropped, the
+    u term of dk dropped, S read one step late) failing the gate, the
+    forward's checkpoints within 1e-4 of the plain version's, and the
+    kernel timed at the training shape beside its plain version and its
+    bound; (k) rwkv6-7b at ``RWKV_TRAIN_LAYERS`` of its 32 layers at full
+    width (bf16, ``remat_policy="full"``) for ``TRAIN_STEPS`` steps of
+    ``make_train_step`` on [4 x 2048] batches, requiring exactly 2 wkv6
+    forward launches a layer a step (both writing checkpoints), one wkv6
+    backward call (two launches) a layer a step and no other kernel,
+    finite losses, and a bit-identical second run, printing step walls,
+    tokens/s, peak memory and one traced step's kernels; (l) one float32
+    step at ``RWKV_F32_BATCH``: each layer's wkv6 backward call within
+    ``BWD_GATE``'s float32 limit of the plain backward on the inputs the
+    step handed it, the loss within ``TRAIN_F32_TOL`` of the same step's
+    with the plain WKV under autograd, and the step's gradients no further
+    from the step's with a float64 plain WKV than the plain float32 WKV's
+    are, plus ``TRAIN_F32_TOL`` of a leaf's max (at this width the plain
+    WKV's float32 rounding alone moves leaves by ~20% of their max, so a
+    leaf-by-leaf 1e-5 against it cannot hold); the new parts' wall is
+    printed;
 17. the parallel plane (``parallel_phase``): (a) one NCCL rank in this
     process (its CPU tensors through gloo) on a (1, 1) ("data", "model")
     mesh: gemma3-1b drawn whole at full width in bf16, its parameters
@@ -462,6 +488,25 @@ SCAN_BWD_CASES = [("hymba-1.5b train", (4, 2048, 3200, 16), True, True),
                   ("zero h0, no dh_last", (2, 64, 256, 8), False, False)]
 SCAN_CKPT_TOL = 1e-4
 HYMBA_F32_BATCH = (1, 512)
+# rwkv6-7b's training (phase 16j-16l): the wkv6 backward's cases (name,
+# [B, T, H, n], nonzero s0, dS_T given, strong decays), gated at
+# BWD_GATE["float32"] in blocks of BWD_GATE_ROWS steps, the first at the
+# training shape; its depth on the card (the whole model's parameters,
+# gradients and AdamW moments take about 91 GB, more than one 80 GB card;
+# 8 of 32 layers take about 27 GB) and the float32 step's [batch x tokens]
+WKV_BWD_CASES = [("rwkv6-7b train", (4, 2048, 64, 64), True, True, False),
+                 ("one step", (2, 1, 64, 64), True, True, False),
+                 ("T 17", (2, 17, 8, 64), True, True, False),
+                 ("T off the stage and the chunk", (2, 1000, 4, 64), True,
+                  True, False),
+                 ("n 8", (2, 77, 5, 8), True, True, False),
+                 ("n 16", (2, 130, 4, 16), True, True, False),
+                 ("n 32", (1, 96, 3, 32), True, True, False),
+                 ("zero s0, no dS_T", (2, 64, 4, 64), False, False, False),
+                 ("strong decays", (2, 300, 4, 64), True, True, True)]
+WKV_CKPT_TOL = 1e-4
+RWKV_TRAIN_LAYERS = 8
+RWKV_F32_BATCH = (1, 512)
 # float32 outside the tensor cores (NVIDIA H100 SXM data sheet)
 FP32_FLOPS_PER_S = 67e12
 # the parallel plane (phase 17): gemma3-1b's backward on a short batch,
@@ -1882,9 +1927,12 @@ def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     wall = time.perf_counter() - t0
     on = main_path = read_counts()
     want = {"wkv": cfg.n_layers}
-    if {key: c for key, c in on.items() if c} != want:
-        raise AssertionError(f"a full-width prefill launched {on}; want "
-                             f"{want} only")
+    if {key: c for key, c in on.items() if c} != want or (
+            wkv.wkv6_fwd.checkpoint_launches):
+        raise AssertionError(f"a full-width prefill launched {on} "
+                             f"({wkv.wkv6_fwd.checkpoint_launches} writing "
+                             f"checkpoints); want {want} only, none writing "
+                             "checkpoints")
     if (logits.shape != (B, cfg.vocab_size)
             or not torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite [4, V]")
@@ -2040,7 +2088,7 @@ def rwkv_phase(torch, np, dev, zero_counts, read_counts) -> dict:
         print(f"serve_demo rwkv6-7b full width: prefill "
               f"{out['prefill_s']:.3f} s, decode {out['decode_s']:.3f} s, "
               f"{out['tok_per_s']:.1f} tok/s; launches {on}")
-        if any(on.values()):
+        if any(on.values()) or wkv.wkv6_fwd.checkpoint_launches:
             raise AssertionError("serve_demo steps the WKV state in plain "
                                  f"code only, but launched {on}")
         if toks.shape != (4, 32) or not ((toks >= 0)
@@ -3169,6 +3217,117 @@ def scan_bwd_gate(torch, dev, gen, smi: str) -> dict:
     return row
 
 
+def wkv_bwd_gate(torch, dev, gen, smi: str) -> dict:
+    """Phase 16j: the wkv6 backward kernel against its plain version at
+    ``WKV_BWD_CASES``, in float32: the forward's checkpoints, y and
+    S_final within ``WKV_CKPT_TOL`` of the plain version's; dr, dk, dv,
+    dw, du and ds0 each within ``BWD_GATE["float32"]`` in blocks of
+    ``BWD_GATE_ROWS`` (``bwd_block_errs``), printed as fractions of their
+    limits; two calls bit-identical; each planted fault
+    (``bwd_planted_faults``) failing the gate.  Then the kernel timed at
+    the training shape (the first case) beside the plain version and its
+    bound, and the forward with and without checkpoints.  Returns the
+    ``kernels`` line's row."""
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkv
+    from repro_torch.kernels.rwkv6_wkv.ref import (bwd_block_errs,
+                                                   bwd_planted_faults)
+    from repro_torch.launch.roofline import HBM_BW
+
+    rtol, atol = BWD_GATE["float32"]
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    max_err, timed = 0.0, None
+    for name, (B, T, H, n), with_s0, with_dS, strong in WKV_BWD_CASES:
+        r, k, v = (randn(B, T, H, n, scale=0.5) for _ in range(3))
+        w = (0.01 + 0.49 * torch.rand((B, T, H, n), generator=gen,
+                                      device=dev) if strong
+             else torch.exp(-torch.exp(randn(B, T, H, n, scale=0.5) - 1)))
+        u = randn(H, n, scale=0.5)
+        s0 = randn(B, H, n, n, scale=0.1) * with_s0
+        dy = randn(B, T, H, n)
+        dS_T = randn(B, H, n, n) if with_dS else None
+        label = f"wkv6_bwd {name} {[B, T, H, n]}"
+        y, s_fin, ck = wkv.wkv6_fwd(r, k, v, w, u, s0, checkpoints=True)
+        y_p, s_p, ck_p = wkv.wkv6_checkpoints_plain(r, k, v, w, u, s0)
+        ck_err = max(float((x - p_).abs().max()) if x.numel() else 0.0
+                     for x, p_ in ((y, y_p), (s_fin, s_p), (ck, ck_p)))
+        del y, s_fin, y_p, s_p, ck_p
+        got = wkv.wkv6_bwd(r, k, v, w, u, s0, dy, dS_T, checkpoints=ck)
+        again = wkv.wkv6_bwd(r, k, v, w, u, s0, dy, dS_T, checkpoints=ck)
+        want = wkv.wkv6_bwd_plain(r, k, v, w, u, s0, dy, dS_T)
+        torch.cuda.synchronize()
+        parts = ("dr", "dk", "dv", "dw", "du", "ds0")
+        for x, x2, part in zip(got, again, parts):
+            if not torch.equal(x, x2):
+                raise AssertionError(f"{label}: {part} differs between two "
+                                     "calls")
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"{label}: {part} is not finite")
+        del again
+        errs = [float((x - p_).abs().max()) for x, p_ in zip(got, want)]
+        gate = bwd_block_errs(got, want, rtol, atol, BWD_GATE_ROWS)
+        caught = {f: max(bwd_block_errs(x, want, rtol, atol, BWD_GATE_ROWS))
+                  for f, x in bwd_planted_faults(r, k, v, w, u, s0, dy, dS_T,
+                                                 got, want).items()}
+        max_err = max(max_err, *errs)
+        print(f"{label}: checkpoints, y and S_final at {ck_err:.3g} max abs "
+              f"(tolerance {WKV_CKPT_TOL}); {'/'.join(parts)} at "
+              + "/".join(f"{g:.3g}" for g in gate)
+              + f" of their block limit ({rtol} x ||plain|| + {atol} x "
+              f"sqrt(n), blocks of {BWD_GATE_ROWS} steps), max abs err "
+              + "/".join(f"{e:.3g}" for e in errs) + "; planted faults at "
+              + ", ".join(f"{f} {x:.3g}" for f, x in caught.items())
+              + "; two calls bit-identical")
+        if ck_err > WKV_CKPT_TOL or max(gate) > 1:
+            raise AssertionError(f"{label}: differs from the plain version")
+        if min(caught.values()) <= 1:
+            raise AssertionError(f"{label}: the gate passes a planted fault")
+        del got, want
+        if timed is None:
+            timed = (r, k, v, w, u, s0, dy, dS_T, ck)
+        else:
+            del r, k, v, w, u, s0, dy, dS_T, ck
+        torch.cuda.empty_cache()
+
+    r, k, v, w, u, s0, dy, dS_T, ck = timed
+    B, T, H, n = r.shape
+    elems = B * T * H * n
+    # read r, k, v, w, dy, u, s0 and dS_T once, write dr, dk, dv, dw, du
+    # and ds0 once
+    nbytes = 4 * (9 * elems + 3 * B * H * n * n + 2 * H * n)
+    # a step of a head: the state's recurrence (k·v and an FMA) and dS's
+    # (r·dy and an FMA), an FMA each for dr, dk, dv and dw, and 16 n for
+    # dy·v, Σ r·u·k and the u terms of dr, dk, dv and du
+    flops = (14 * n * n + 16 * n) * B * T * H
+    bnd = {"bytes": nbytes / HBM_BW * 1e3,
+           "operations": flops / FP32_FLOPS_PER_S * 1e3}
+    by = max(bnd, key=bnd.get)
+    row = dict(
+        ms=_cuda_ms(torch, lambda: wkv.wkv6_bwd(
+            r, k, v, w, u, s0, dy, dS_T, checkpoints=ck)),
+        plain_ms=_cuda_ms(torch, lambda: wkv.wkv6_bwd_plain(
+            r, k, v, w, u, s0, dy, dS_T), reps=2, queued=False),
+        library_ms=None, bound_ms=bnd[by], bound_by=by, shape=[B, T, H, n],
+        fwd_ms=_cuda_ms(torch, lambda: wkv.wkv6_fwd(r, k, v, w, u, s0)),
+        fwd_checkpoints_ms=_cuda_ms(torch, lambda: wkv.wkv6_fwd(
+            r, k, v, w, u, s0, checkpoints=True)),
+        max_abs_err=max_err)
+    print(f"wkv6_bwd [{B}, {T}, {H}, {n}] float32: kernel {row['ms']:.4f} "
+          f"ms ({wkv.BWD_LAUNCHES_PER_CALL} launches), plain "
+          f"{row['plain_ms']:.4f} ms (a Python loop over {T} steps each "
+          f"way), library none, bound {row['bound_ms']:.4f} ms ({by}; "
+          f"{nbytes} bytes = {bnd['bytes']:.4f} ms, {flops:.4g} float32 "
+          f"flops = {bnd['operations']:.4f} ms): the kernel at "
+          f"{row['ms'] / row['bound_ms']:.2f}x its bound; the forward "
+          f"{row['fwd_ms']:.4f} ms, with checkpoints "
+          f"{row['fwd_checkpoints_ms']:.4f} ms, on {smi}")
+    del timed, r, k, v, w, u, s0, dy, dS_T, ck
+    torch.cuda.empty_cache()
+    return row
+
+
 def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     """Phase 16: one-card training.  The flash backward kernel against its
     plain version and timed at the training shapes; gemma3-1b whole at
@@ -3179,9 +3338,14 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     smoke CLI's falling loss; the selective-scan backward kernel against
     its plain version (``scan_bwd_gate``), hymba-1.5b whole at full width
     with exact launch counts and a bit-identical repeat, and one float32
-    hymba-1.5b step against the plain scan's; rwkv refusing to train.
-    Returns the two backward kernels' rows of the ``kernels`` line and the
-    forward kernels' training launches."""
+    hymba-1.5b step against the plain scan's; the wkv6 backward kernel
+    against its plain version (``wkv_bwd_gate``), rwkv6-7b at
+    ``RWKV_TRAIN_LAYERS`` of 32 layers at full width with exact launch
+    counts and a bit-identical repeat, and one float32 step of it, its
+    backward calls against the plain backward and its gradients against
+    the plain WKV's in float32 and float64.  Returns the three backward
+    kernels' rows of the ``kernels`` line and the forward kernels'
+    training launches."""
     import tempfile
 
     import torch.nn.functional as F
@@ -3191,12 +3355,16 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.flash_attention.ref import bwd_block_err
+    from repro_torch.kernels.rwkv6_wkv import kernel as wkv
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv.ref import (
+        bwd_block_errs as wkv_block_errs)
     from repro_torch.kernels.selective_scan import kernel as scan
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.models import attention as attn
-    from repro_torch.models import ssm
+    from repro_torch.models import rwkv6, ssm
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
 
@@ -3360,9 +3528,17 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
         on = read_counts()
         routes = dict(flash.flash_attention_fwd.launches_by_route)
         bwd_routes = dict(flash.flash_attention_bwd.launches_by_route)
+        checkpointed = wkv.wkv6_fwd.checkpoint_launches
         peak = torch.cuda.max_memory_allocated(dev)
-        want = {"flash": 2 * cfg.n_layers * TRAIN_STEPS,
-                "flash_bwd": per_call * cfg.n_layers * TRAIN_STEPS}
+        if cfg.block_type == "rwkv":
+            # each layer's WKV: a forward launch, again recomputed (both
+            # writing checkpoints), and one backward call; no attention
+            want = {"wkv": 2 * cfg.n_layers * TRAIN_STEPS,
+                    "wkv_bwd": wkv.BWD_LAUNCHES_PER_CALL * cfg.n_layers
+                    * TRAIN_STEPS}
+        else:
+            want = {"flash": 2 * cfg.n_layers * TRAIN_STEPS,
+                    "flash_bwd": per_call * cfg.n_layers * TRAIN_STEPS}
         if cfg.block_type == "hybrid":
             # each layer's SSM scan: a forward launch, again recomputed,
             # and one backward call
@@ -3373,10 +3549,14 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                 n_ for k, n_ in on.items() if k not in want):
             raise AssertionError(f"{label}: {TRAIN_STEPS} steps launched "
                                  f"{on}; want {want} and nothing else")
-        if routes["hopper"] != want["flash"]:
+        if routes["hopper"] != want.get("flash", 0):
             raise AssertionError(f"{label}: forward routes {routes}")
-        if bwd_routes["hopper"] != want["flash_bwd"]:
+        if bwd_routes["hopper"] != want.get("flash_bwd", 0):
             raise AssertionError(f"{label}: backward routes {bwd_routes}")
+        if checkpointed != want.get("wkv", 0):
+            raise AssertionError(f"{label}: {checkpointed} wkv6 launches "
+                                 f"wrote checkpoints, not all "
+                                 f"{want.get('wkv', 0)}")
         steady = float(np.median(walls[1:]))
         row = dict(parameters=n, steps=TRAIN_STEPS, batch=[B, S],
                    losses=losses, step_walls_s=walls,
@@ -3387,14 +3567,19 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
               f"{[round(x, 4) for x in losses]}, step walls "
               f"{[round(x, 4) for x in walls]} s ({row['tokens_per_s']:.0f} "
               f"tokens/s after the first), peak {row['peak_gib']:.2f} GiB; "
-              f"launches {on} (exactly {want['flash']} forward, "
-              f"{want['flash'] // 2} of them recomputed, and "
-              f"{want['flash_bwd']} backward, {per_call} a call; backward "
-              f"routes {bwd_routes}"
+              f"launches {on} ("
+              + (f"exactly {want['flash']} forward, "
+                 f"{want['flash'] // 2} of them recomputed, and "
+                 f"{want['flash_bwd']} backward, {per_call} a call; backward "
+                 f"routes {bwd_routes}" if "flash" in want else "")
               + (f"; {want['scan']} scan forward, half recomputed, and "
                  f"{want['scan_bwd']} scan backward, "
                  f"{scan.BWD_LAUNCHES_PER_CALL} a call"
-                 if "scan" in want else "") + f") on {smi}")
+                 if "scan" in want else "")
+              + (f"exactly {want['wkv']} wkv6 forward, half recomputed, "
+                 f"all writing checkpoints, and {want['wkv_bwd']} wkv6 "
+                 f"backward, {wkv.BWD_LAUNCHES_PER_CALL} a call"
+                 if "wkv" in want else "") + f") on {smi}")
         return row, params, step, pipe, p, s
 
     # -- 16b: gemma3-1b whole, bf16: counts, repeat, resume ---------------
@@ -3650,23 +3835,154 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
     torch.cuda.empty_cache()
     scan_wall = time.perf_counter() - t_scan
     print(f"phase 16g-16i (hymba-1.5b training) wall {scan_wall:.1f} s")
-    # -- 16f: rwkv refuses to train on the card ---------------------------
-    c = get_config("rwkv6-7b", smoke=True)
-    p = T.init_params(c, torch.Generator(device=dev).manual_seed(0), dev)
-    b = {"tokens": torch.zeros((2, 16), dtype=torch.long, device=dev)}
-    try:
-        steps.make_train_step(c, adamw.AdamWConfig())(
-            p, adamw.init_opt_state(p), b)
-    except NotImplementedError as e:
-        if "ROADMAP item 6.5.3" not in str(e):
-            raise
-        print(f"rwkv6-7b on the card with grad enabled: "
-              f"NotImplementedError ({e})")
-    else:
-        raise AssertionError("rwkv6-7b trained on the card without a "
-                             "backward kernel")
-    del c, p, b
+    # -- 16j: the wkv6 backward kernel against its plain version -----------
+    t_wkv = time.perf_counter()
+    wkv_row = wkv_bwd_gate(torch, dev, gen, smi)
+
+    # -- 16k: rwkv6-7b at RWKV_TRAIN_LAYERS of 32 layers, bf16 -------------
+    cfg_r = get_config("rwkv6-7b").replace(n_layers=RWKV_TRAIN_LAYERS)
+    if cfg_r.remat_policy != "full":
+        raise AssertionError(f"rwkv6-7b's remat_policy {cfg_r.remat_policy}")
+    rwkv, params, step, pipe, pA, sA = counted_run(
+        cfg_r, f"rwkv6-7b ({RWKV_TRAIN_LAYERS} of 32 layers)")
+    pA, sA = to_host(pA), to_host(sA)
     torch.cuda.empty_cache()
+    pB, sB, lossB, _ = run_steps(cfg_r, step, pipe, params,
+                                 adamw.init_opt_state(params), 0,
+                                 TRAIN_STEPS, B, S)
+    if lossB != rwkv["losses"] or not tree_equal(pA, pB) or not (
+            tree_equal(sA, sB)):
+        raise AssertionError("rwkv6-7b: two runs from one state differ")
+    print(f"rwkv6-7b: a second run of {TRAIN_STEPS} steps gives "
+          "bit-identical losses, parameters and moments")
+    del pA, sA
+    # one more step under torch.profiler (after one untraced): its device
+    # time by kernel, the wkv6 kernels' part
+    batch = train_mod.make_batch_for(cfg_r, pipe, TRAIN_STEPS, B, S, dev)
+    traced = _kernel_ms(torch, lambda: step(pB, sB, batch), calls=1)
+    steady_ms = float(np.median(rwkv["step_walls_s"][1:])) * 1e3
+    if traced:
+        kernel_ms = sum(traced.values())
+        wkv_ms = {k: v for k, v in traced.items() if k.startswith("wkv6")}
+        top = sorted(traced.items(), key=lambda kv: -kv[1])[:8]
+        rwkv["traced_step"] = dict(kernel_ms=kernel_ms, wkv_ms=wkv_ms,
+                                   top_kernels=top)
+        print(f"rwkv6-7b traced step: {kernel_ms:.2f} ms of kernels "
+              f"(untraced step wall {steady_ms:.2f} ms); the wkv6 kernels "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in wkv_ms.items())
+              + f" ({sum(wkv_ms.values()) / kernel_ms:.1%} of the kernels)"
+              "; the largest: "
+              + ", ".join(f"{n} {v:.2f} ms" for n, v in top))
+    else:
+        rwkv["traced_step"] = "not measured"
+        print("rwkv6-7b traced step: not measured (no kernel in the trace)")
+    del pB, sB, params, step, batch
+    torch.cuda.empty_cache()
+
+    # -- 16l: one float32 rwkv6-7b step against the plain WKV's -------------
+    # At full width with random weights this step's gradients are
+    # ill-conditioned: each head's group norm subtracts a mean that
+    # dominates y, and 8 layers compound it, so the plain WKV in float32
+    # and in float64 give gradients up to ~20% of a leaf's max apart
+    # (measured, PERF.md §6).  So the gate holds what the kernel
+    # computes inside the step: each layer's backward call, on the inputs
+    # and dy the step hands it, within the float32 block gate of the plain
+    # backward on the same inputs; the loss within TRAIN_F32_TOL of the
+    # plain WKV's; and the step's worst leaf no further from the float64
+    # WKV's step than the plain float32 WKV's step's worst leaf is, plus
+    # TRAIN_F32_TOL.  The worst leaf of all three pairs is printed.
+    cfg_r32 = cfg_r.replace(param_dtype="float32", activ_dtype="float32")
+    p32 = T.init_params(cfg_r32, torch.Generator(device=dev).manual_seed(0),
+                        dev)
+    Br, Sr = RWKV_F32_BATCH
+    pipe32 = TokenPipeline(TokenPipelineConfig(
+        vocab_size=cfg_r32.vocab_size, seq_len=Sr, global_batch=Br, seed=0))
+    batch32 = train_mod.make_batch_for(cfg_r32, pipe32, 0, Br, Sr, dev)
+    L = cfg_r32.n_layers
+    calls = []
+
+    def kept_bwd(*args, **kw):
+        out = wkv.wkv6_bwd(*args, **kw)
+        calls.append((args, out))
+        return out
+
+    zero_counts()
+    with mock.patch.object(wkv_ops, "wkv6_bwd", kept_bwd):
+        loss_k, g_k = steps._loss_and_grads(cfg_r32, p32, batch32)
+    torch.cuda.synchronize()
+    on_k = read_counts()
+    want_k = {"wkv": 2 * L, "wkv_bwd": wkv.BWD_LAUNCHES_PER_CALL * L}
+    if {k: n_ for k, n_ in on_k.items() if n_} != want_k or len(calls) != L:
+        raise AssertionError(f"the float32 rwkv step launched {on_k}; want "
+                             f"{want_k}, one backward call a layer")
+    rtol, atol = BWD_GATE["float32"]
+    in_step = max(max(wkv_block_errs(out, wkv.wkv6_bwd_plain(*args), rtol,
+                                     atol, BWD_GATE_ROWS))
+                  for args, out in calls)
+    del calls
+    if in_step > 1:
+        raise AssertionError(f"float32 rwkv step: a layer's wkv6 backward "
+                             f"is at {in_step:.3g} of its block limit "
+                             "against the plain backward on its inputs")
+
+    def plain_wkv(r, k, v, w, u, s0):
+        return wkv.wkv6_plain(r, k, v, w, u, s0)
+
+    def plain_wkv64(r, k, v, w, u, s0):
+        y, s_fin, _ = wkv.wkv6_checkpoints_plain(
+            *(x.double() for x in (r, k, v, w, u, s0)))
+        return y.float(), s_fin.float()
+
+    grads = {"kernel": g_k}
+    losses = {"kernel": float(loss_k)}
+    for name, fn in (("plain", plain_wkv), ("float64", plain_wkv64)):
+        zero_counts()
+        with mock.patch.object(rwkv6, "wkv6", fn):
+            loss_x, grads[name] = steps._loss_and_grads(cfg_r32, p32,
+                                                        batch32)
+        torch.cuda.synchronize()
+        losses[name] = float(loss_x)
+        if any(read_counts().values()):
+            raise AssertionError(f"the {name}-WKV step launched "
+                                 f"{read_counts()}")
+    paths = ["/".join(path) for path, _ in store._paths(g_k)]
+    leaves = {k: adamw.tree_leaves(v) for k, v in grads.items()}
+    worst = {}
+    for a, b_ in (("kernel", "plain"), ("kernel", "float64"),
+                  ("plain", "float64")):
+        rels = [float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(leaves[a], leaves[b_])]
+        i = max(range(len(rels)), key=rels.__getitem__)
+        worst[f"{a} vs {b_}"] = (rels[i], paths[i])
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    rwkv_f32 = dict(batch=[Br, Sr], losses=losses, worst_leaf=worst,
+                    in_step_backward_gate=in_step, loss_rel=loss_rel,
+                    tolerance=TRAIN_F32_TOL)
+    print(f"rwkv6-7b ({L} layers) float32 step [{Br} x {Sr}]: losses "
+          + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+          + f" (kernel against plain {loss_rel:.3g}, tolerance "
+          f"{TRAIN_F32_TOL}); each layer's wkv6 backward within "
+          f"{in_step:.3g} of its block limit against the plain backward on "
+          "its inputs; the worst leaf, as a share of its max |gradient|: "
+          + ", ".join(f"{k} {v:.3g} ({n})" for k, (v, n) in worst.items())
+          + f"; launches {on_k}")
+    if loss_rel > TRAIN_F32_TOL:
+        raise AssertionError("float32 rwkv step: the loss differs from the "
+                             "plain WKV's")
+    if worst["kernel vs float64"][0] > (worst["plain vs float64"][0]
+                                        + TRAIN_F32_TOL):
+        raise AssertionError("float32 rwkv step: the kernels' gradients sit "
+                             "further from the float64 WKV's than the plain "
+                             "float32 WKV's do (by more than "
+                             f"{TRAIN_F32_TOL} of a leaf's max)")
+    del p32, g_k, grads, leaves, batch32
+    torch.cuda.empty_cache()
+    wkv_wall = time.perf_counter() - t_wkv
+    print(f"phase 16j-16l (rwkv6-7b training) wall {wkv_wall:.1f} s")
+    wkv_row.update(
+        launches=rwkv["launches"]["wkv_bwd"],
+        launches_per_step=wkv.BWD_LAUNCHES_PER_CALL * cfg_r.n_layers,
+        train=dict(rwkv6_7b=rwkv, float32_step=rwkv_f32, wall_s=wkv_wall))
 
     scan_row.update(
         launches=hymba["launches"]["scan_bwd"],
@@ -3687,7 +4003,9 @@ def train_phase(torch, np, dev, zero_counts, read_counts) -> dict:
                           granite_3_8b=granite, smoke_cli=cli_row))
     return dict(bwd=row, fwd_train_launches_per_step=2 * cfg.n_layers,
                 scan_bwd=scan_row,
-                scan_train_launches_per_step=2 * cfg_h.n_layers)
+                scan_train_launches_per_step=2 * cfg_h.n_layers,
+                wkv_bwd=wkv_row,
+                wkv_train_launches_per_step=2 * cfg_r.n_layers)
 
 
 def _leaf_draw(torch, shape, dev, rank: int):
@@ -4226,13 +4544,15 @@ def main() -> int:
                 "flash_bwd": flash.flash_attention_bwd,
                 "scan": scan.selective_scan_fwd,
                 "scan_bwd": scan.selective_scan_bwd,
-                "wkv": wkv.wkv6_fwd}
+                "wkv": wkv.wkv6_fwd,
+                "wkv_bwd": wkv.wkv6_bwd}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
         flash.zero_launches()
         scan.zero_launches()
+        wkv.zero_launches()
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -4249,7 +4569,7 @@ def main() -> int:
                          "rule_match_packed", "rule_match_int8",
                          "intersect_count", "flash_attention",
                          "flash_attention_bwd", "selective_scan",
-                         "selective_scan_bwd", "wkv6"])
+                         "selective_scan_bwd", "wkv6", "wkv6_bwd"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(logs) or 'already built'})")
     for name, log in logs.items():
@@ -5056,7 +5376,7 @@ def main() -> int:
     timing["flash"].update(fam)
 
     # ---- 16. one-card training (gemma3-1b and hymba-1.5b whole, ------
-    # ---- granite-3-8b cut) ----------------------------------------------
+    # ---- granite-3-8b and rwkv6-7b cut) ---------------------------------
     trained = train_phase(torch, np, dev, zero_counts, read_counts)
     timing["flash_bwd"] = trained["bwd"]
     launches["flash_bwd"] = timing["flash_bwd"].pop("launches")
@@ -5068,6 +5388,11 @@ def main() -> int:
     err["scan_bwd"] = timing["scan_bwd"].pop("max_abs_err")
     timing["scan"]["train_launches_per_step"] = trained[
         "scan_train_launches_per_step"]
+    timing["wkv_bwd"] = trained["wkv_bwd"]
+    launches["wkv_bwd"] = timing["wkv_bwd"].pop("launches")
+    err["wkv_bwd"] = timing["wkv_bwd"].pop("max_abs_err")
+    timing["wkv"]["train_launches_per_step"] = trained[
+        "wkv_train_launches_per_step"]
     print(f"training on {_nvidia_smi('name,power.limit')}: " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
          for k, v in timing["flash_bwd"]["train"].items()}))
@@ -5077,6 +5402,12 @@ def main() -> int:
               k: v for k, v in hymba_train["hymba_1_5b"].items()
               if k != "losses"}, "float32_step": hymba_train["float32_step"],
               "wall_s": hymba_train["wall_s"]}))
+    rwkv_train = timing["wkv_bwd"]["train"]
+    print(f"rwkv6-7b training on {_nvidia_smi('name,power.limit')}: "
+          + json.dumps({"rwkv6_7b": {
+              k: v for k, v in rwkv_train["rwkv6_7b"].items()
+              if k != "losses"}, "float32_step": rwkv_train["float32_step"],
+              "wall_s": rwkv_train["wall_s"]}))
 
     # ---- 17. the parallel plane ----------------------------------------
     t0 = time.perf_counter()
@@ -5117,7 +5448,9 @@ def main() -> int:
              "src/repro/kernels/rwkv6_wkv/kernel.py:87"),
             ("scan_bwd", "selective_scan_bwd",
              "src/repro_torch/csrc/selective_scan_bwd.cu",
-             "src/repro/models/ssm.py:118")):
+             "src/repro/models/ssm.py:118"),
+            ("wkv_bwd", "wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+             "src/repro/models/rwkv6.py:65")):
         rows.append(dict(name=name, route="cuda", source=src,
                          replaces=replaces, launches=launches[key],
                          max_abs_err=err[key], ok=True, **timing[key]))
@@ -5132,6 +5465,11 @@ def main() -> int:
                 "no Pallas backward: the reference differentiates its "
                 "lax.scan over time with jax.value_and_grad; this kernel "
                 "is the gradient of row selective_scan's function")
+        if key == "wkv_bwd":
+            rows[-1]["note"] = (
+                "no Pallas backward: the reference differentiates its "
+                "lax.scan (src/repro/models/rwkv6.py:65); this kernel is "
+                "the gradient of row wkv6's function")
         if rows[-1]["ms"] < 0.01:
             rows[-1]["launch_floor_ms"] = floor_ms
         rows[-1]["apriori_launches"] = clis["apriori_launches"].get(key, 0)

@@ -1,5 +1,5 @@
-// RWKV-6 WKV recurrence (data-dependent decay), forward only, for Hopper
-// (sm_90a).
+// RWKV-6 WKV recurrence (data-dependent decay), forward, for Hopper
+// (sm_90a).  Its gradient is wkv6_bwd.cu.
 //
 // Replaces the TPU kernel wkv6_pallas
 // (src/repro/kernels/rwkv6_wkv/kernel.py:87):
@@ -72,6 +72,12 @@
 // replaced: 0.889 ms); 32 launches take 12.7 ms of a 343-345 ms rwkv6-7b
 // prefill.
 //
+// Checkpoints.  Under training (wkv6_launch_checkpoints with a non-null
+// ck) each thread also stores its tile of the state entering every
+// kWkvChunk-th step into ck [B, H, ceil(T / kWkvChunk), n, n], which
+// wkv6_bwd.cu walks back from: 1/kWkvChunk of the state's size a step,
+// 1.07 GB at the prefill's shape.  Serving passes null and stores nothing.
+//
 // Left: 3 float32 instructions an element and step are the floor of this
 // form, and with the prefill's 256 heads over 132 SMs only 8 warps an SM
 // issue them; what remains is issue and latency, not bytes.  The chunked
@@ -80,6 +86,7 @@
 // (3.9 ms a layer) matter more to the prefill than the kernel does.
 
 #include "sm90.cuh"        // mbarriers, cuTensorMapEncodeTiled
+#include "wkv6.cuh"        // kWkvChunk
 
 namespace {
 
@@ -145,8 +152,8 @@ wkv6_kernel(const __grid_constant__ CUtensorMap tm_r,
             const __grid_constant__ CUtensorMap tm_v,
             const __grid_constant__ CUtensorMap tm_w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ y, float* __restrict__ s_final, int T,
-            int H) {
+            float* __restrict__ y, float* __restrict__ s_final,
+            float* __restrict__ ck, int T, int H) {
   constexpr int G = Tiling<N>::kRowGroups;
   constexpr int kQ = Tiling<N>::kQuads;
   constexpr int C = Tiling<N>::kCols;
@@ -193,6 +200,22 @@ wkv6_kernel(const __grid_constant__ CUtensorMap tm_r,
         S[4 * j + e][c] = x.x; S[4 * j + e][c + 1] = x.y;
         S[4 * j + e][c + 2] = x.z; S[4 * j + e][c + 3] = x.w;
       }
+  // this thread's tile of S into an [n, n] state at dst
+  auto store_state = [&](float* dst) {
+    float* pS = dst + m0;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int c = 0; c < C; c += 4)
+          *reinterpret_cast<float4*>(pS + (4 * (G * j + rg) + e) * N + c) =
+              make_float4(S[4 * j + e][c], S[4 * j + e][c + 1],
+                          S[4 * j + e][c + 2], S[4 * j + e][c + 3]);
+  };
+  const int n_ck = (T + kWkvChunk - 1) / kWkvChunk;
+  float* ck_bh =
+      ck ? ck + static_cast<size_t>(bh) * n_ck * N * N : nullptr;
   const int uc = tid % kUG;                      // u-term rows
   float ur[kU];
 #pragma unroll
@@ -248,6 +271,11 @@ wkv6_kernel(const __grid_constant__ CUtensorMap tm_r,
       const float4* K4 = reinterpret_cast<const float4*>(sk + j * N);
       const float4* W4 = reinterpret_cast<const float4*>(sw + j * N);
       const float4* V4 = reinterpret_cast<const float4*>(sv + j * N + m0);
+      if (ck != nullptr) {       // uniform: training stores checkpoints
+        const int t = i * kSteps + j;
+        if (t % kWkvChunk == 0)
+          store_state(ck_bh + static_cast<size_t>(t / kWkvChunk) * N * N);
+      }
       float v[C], a[C];
 #pragma unroll
       for (int c = 0; c < C; c += 4) {
@@ -305,16 +333,7 @@ wkv6_kernel(const __grid_constant__ CUtensorMap tm_r,
     }
   }
 
-  float* pS = s_final + static_cast<size_t>(bh) * N * N + m0;
-#pragma unroll
-  for (int j = 0; j < kQ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int c = 0; c < C; c += 4)
-        *reinterpret_cast<float4*>(pS + (4 * (G * j + rg) + e) * N + c) =
-            make_float4(S[4 * j + e][c], S[4 * j + e][c + 1],
-                        S[4 * j + e][c + 2], S[4 * j + e][c + 3]);
+  store_state(s_final + static_cast<size_t>(bh) * N * N);
 }
 
 // a [B, T, H, n] float32 tensor read as [B, T, H*n] in boxes of one head's
@@ -337,8 +356,8 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 
 template <int N>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* s0, void* y, void* s_final, int B,
-           int T, int H, cudaStream_t s) {
+           const void* u, const void* s0, void* y, void* s_final, void* ck,
+           int B, int T, int H, cudaStream_t s) {
   // T = 0: no map is read (they stay zeroed) and S_final = s0
   CUtensorMap maps[4] = {};
   if (T > 0) {
@@ -357,7 +376,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   wkv6_kernel<N><<<B * H, Tiling<N>::kThreads, smem, s>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(u),
       static_cast<const float*>(s0), static_cast<float*>(y),
-      static_cast<float*>(s_final), T, H);
+      static_cast<float*>(s_final), static_cast<float*>(ck), T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,19 +384,33 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 
 // n must be one of the template sizes (the wrapper checks); any other n is
 // refused.  r, k, v, w, y: [B, T, H, n]; u: [H, n]; s0, s_final:
-// [B, H, n, n]; all float32, contiguous, 16-byte aligned.
+// [B, H, n, n]; ck: null, or [B, H, ceil(T / kWkvChunk), n, n] for the
+// states entering every kWkvChunk-th step; all float32, contiguous, 16-byte
+// aligned.
+extern "C" int wkv6_launch_checkpoints(const void* r, const void* k,
+                                       const void* v, const void* w,
+                                       const void* u, const void* s0,
+                                       void* y, void* s_final, void* ck,
+                                       int B, int T, int H, int N,
+                                       void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 8: return launch<8>(r, k, v, w, u, s0, y, s_final, ck, B, T, H, s);
+    case 16: return launch<16>(r, k, v, w, u, s0, y, s_final, ck, B, T, H, s);
+    case 32: return launch<32>(r, k, v, w, u, s0, y, s_final, ck, B, T, H, s);
+    case 64: return launch<64>(r, k, v, w, u, s0, y, s_final, ck, B, T, H, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward alone, with no checkpoints (the entry point that
+// tools/wkv6_designs.py times designs through).
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const void* u, const void* s0,
                            void* y, void* s_final, int B, int T, int H, int N,
                            void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 8: return launch<8>(r, k, v, w, u, s0, y, s_final, B, T, H, s);
-    case 16: return launch<16>(r, k, v, w, u, s0, y, s_final, B, T, H, s);
-    case 32: return launch<32>(r, k, v, w, u, s0, y, s_final, B, T, H, s);
-    case 64: return launch<64>(r, k, v, w, u, s0, y, s_final, B, T, H, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return wkv6_launch_checkpoints(r, k, v, w, u, s0, y, s_final, nullptr, B,
+                                 T, H, N, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -4,10 +4,10 @@
 The train step differentiates ``T.model_loss`` with autograd where the
 reference uses ``jax.value_and_grad``: on the card every GQA layer's
 attention runs the flash forward kernel and, in backward, the flash
-backward kernel, and every ``hybrid`` layer's SSM scan the selective-scan
-forward kernel and, in backward, its backward kernel; an ``rwkv`` config
-raises there (the wkv6 kernel has no backward yet, ROADMAP item 6.5.3) and
-trains on the CPU.
+backward kernel, every ``hybrid`` layer's SSM scan the selective-scan
+forward kernel and, in backward, its backward kernel, and every ``rwkv``
+layer's WKV recurrence the wkv6 forward kernel and, in backward, its
+backward kernel.
 """
 from __future__ import annotations
 

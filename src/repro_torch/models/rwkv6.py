@@ -7,9 +7,12 @@ data-dependent decay).  Decode carries (S, last-x) state.
 
 A full sequence (S > 1) runs the recurrence through
 :func:`repro_torch.kernels.rwkv6_wkv.ops.wkv6`: the hand-written kernel
-on the card, its plain sequential version on the CPU.  One token (decode)
-steps the state with :func:`_wkv_scan` in plain tensor code on either
-device, as the reference's ``scan`` form does.
+on the card, its plain sequential version on the CPU.  Under training the
+same entry is differentiable: its gradient is the wkv6 backward kernel on
+the card and its plain version on the CPU (the reference differentiates
+its ``lax.scan``).  One token (decode) steps the state with
+:func:`_wkv_scan` in plain tensor code on either device, as the
+reference's ``scan`` form does.
 
 The reference's two ``time_mix_impl`` forms, ``scan`` and ``chunked``,
 compute one function, so here both take that path.  The reference's
@@ -151,11 +154,6 @@ def rwkv_time_forward(p: Params, cfg, x: torch.Tensor,
                          f"(known: {TIME_MIX_IMPLS})")
     r, k, v, w, g, s0 = time_mix_inputs(p, cfg, x, state)
     if x.shape[1] > 1:
-        if (x.device.type == "cuda" and torch.is_grad_enabled()
-                and any(t.requires_grad for t in (r, k, v, w, p["u"], s0))):
-            raise NotImplementedError(
-                "the wkv6 kernel has no backward yet: training rwkv6-7b on "
-                "the card is ROADMAP item 6.5.3 (a wkv6 backward kernel)")
         y, s_last = wkv6(r, k, v, w, p["u"], s0)
     else:
         y, s_last = _wkv_scan(r, k, v, w, p["u"], s0)

@@ -21,10 +21,9 @@ patch embeddings to the text.
 Training: :func:`model_loss` is the reference's mean next-token
 cross-entropy (plus the MoE aux loss), differentiated by autograd.  On
 the card a GQA layer's attention is the flash kernels' differentiable
-entry and a ``hybrid`` layer's SSM scan the selective-scan kernels' (a
-forward and a backward kernel each); an ``rwkv`` block raises there while
-autograd records, since the wkv6 kernel has no backward yet (ROADMAP item
-6.5.3).  ``cfg.remat_policy`` maps the reference's
+entry, a ``hybrid`` layer's SSM scan the selective-scan kernels' and an
+``rwkv`` layer's WKV recurrence the wkv6 kernels' (a forward and a
+backward kernel each).  ``cfg.remat_policy`` maps the reference's
 ``jax.checkpoint`` of each stacked layer onto ``torch.utils.checkpoint``.
 """
 from __future__ import annotations

@@ -14,7 +14,8 @@ from repro_torch.kernels import loader  # noqa: E402
 INCLUDES = {
     "flash_attention": {"attention_sm90.cuh", "sm90.cuh"},
     "flash_attention_bwd": {"attention_sm90.cuh", "sm90.cuh"},
-    "wkv6": {"sm90.cuh"},
+    "wkv6": {"sm90.cuh", "wkv6.cuh"},
+    "wkv6_bwd": {"wkv6.cuh"},
     "support_count_int8": {"support_count_wgmma.cuh", "sm90.cuh"},
     "support_count_packed": {"support_count_wgmma.cuh", "sm90.cuh"},
     "rule_match_int8": {"rule_match_wgmma.cuh", "sm90.cuh"},
@@ -40,7 +41,7 @@ def test_every_source_is_listed():
 @pytest.mark.parametrize("header", ["sm90.cuh", "rule_match_wgmma.cuh",
                                     "support_count_wgmma.cuh",
                                     "attention_sm90.cuh",
-                                    "selective_scan.cuh"])
+                                    "selective_scan.cuh", "wkv6.cuh"])
 def test_a_header_edit_renames_only_its_includers(monkeypatch, tmp_path,
                                                   header):
     csrc = tmp_path / "csrc"

@@ -12,11 +12,12 @@ port (``params_from_numpy``) and inputs drawn with numpy from a seed:
   token to another expert where its bf16 input differs in the last bit at
   a near-tie of its top-k, 8 experts at the smoke width);
 * every ``remat_policy`` giving bit-equal gradients (hymba-1.5b's scan
-  through the selective-scan Function, recomputed under checkpointing);
-* hymba-1.5b's smoke training losses against the reference's ``train()``
-  (bf16, within 3e-2 absolute) and its ``ssm`` leaves' first-step
-  gradients against ``jax.value_and_grad`` (float32, 1e-4 of each leaf's
-  max |gradient|);
+  and rwkv6-7b's WKV through their Functions, recomputed under
+  checkpointing);
+* hymba-1.5b's and rwkv6-7b's smoke training losses against the
+  reference's ``train()`` (bf16, within 3e-2 absolute), and hymba-1.5b's
+  ``ssm`` leaves' first-step gradients against ``jax.value_and_grad``
+  (float32, 1e-4 of each leaf's max |gradient|);
 * ``TokenPipeline`` batches bit-identical;
 * ``make_train_step`` at ``grad_accum`` 1 and 2 after 3 steps (float32:
   parameters within 1e-4 of each leaf's max |value| plus 1% of the
@@ -114,7 +115,7 @@ def test_model_loss_and_grads_match_reference(arch, dtype):
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "dbrx-132b",
                                   "deepseek-v2-236b", "internvl2-26b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "rwkv6-7b"])
 def test_every_remat_policy_gives_equal_gradients(arch):
     c = par.carry(arch, "float32")
     _, b = _batch(c.cfg, 2, 16)
@@ -204,8 +205,8 @@ def test_grad_accum_splits_rows_as_the_reference():
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
 def test_recurrent_blocks_train_on_the_cpu(arch):
     """Their plain versions differentiate on the CPU (hymba-1.5b's scan
-    through the selective-scan Function's plain backward; on the card
-    rwkv6-7b raises)."""
+    through the selective-scan Function's plain backward, rwkv6-7b's WKV
+    through the wkv6 Function's)."""
     c = par.carry(arch, "float32")
     _, b = _batch(c.cfg, 2, 12)
     step = steps.make_train_step(c.cfg, adamw.AdamWConfig(lr=1e-3))
@@ -241,6 +242,20 @@ def test_train_losses_match_reference_hymba():
     want = ref_train.train("hymba-1.5b", **kw)
     got = train.train("hymba-1.5b", device="cpu",
                       params=_carried_smoke_params("hymba-1.5b"), **kw)
+    assert len(got["loss"]) == 6 and got["replans"] == want["replans"] == 0
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
+                               atol=TRAIN_LOSS_ATOL)
+
+
+def test_train_losses_match_reference_rwkv():
+    """rwkv6-7b's smoke config (bf16) trained 6 steps by both packages from
+    the reference's draw: the WKV's gradient comes from the wkv6
+    Function's plain backward here, from jax's autodiff of its
+    ``lax.scan`` there."""
+    kw = dict(steps=6, smoke=True, batch=4, seq=32, lr=3e-3, log_every=100)
+    want = ref_train.train("rwkv6-7b", **kw)
+    got = train.train("rwkv6-7b", device="cpu",
+                      params=_carried_smoke_params("rwkv6-7b"), **kw)
     assert len(got["loss"]) == 6 and got["replans"] == want["replans"] == 0
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=0,
                                atol=TRAIN_LOSS_ATOL)

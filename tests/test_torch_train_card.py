@@ -1,6 +1,6 @@
-"""One-card training on the card: the flash and selective-scan backward
-kernels against their plain versions, and the launches a train step
-makes.
+"""One-card training on the card: the flash, selective-scan and wkv6
+backward kernels against their plain versions, and the launches a train
+step makes.
 
 These tests need an NVIDIA card (marked ``cuda``; each skips where none is
 present) and import neither jax nor the reference:
@@ -18,8 +18,10 @@ fed the plain forward's output and ``lse``.  ``lse`` itself is held
 within 1e-5 relative and absolute.  The selective-scan backward runs in
 float32 on both sides and is held by the same gate at the float32
 tolerance, in blocks of 64 time steps (``scan_ref.bwd_block_errs``), its
-planted faults (``scan_ref.bwd_planted_faults``) failing it.  Nothing
-here changes process-wide state: each model draws from its own generator.
+planted faults (``scan_ref.bwd_planted_faults``) failing it; the wkv6
+backward likewise, with its own gate and faults (``wkv_ref``).  Nothing
+here changes process-wide state: each model draws from its own
+generator.
 """
 import numpy as np
 import pytest
@@ -28,6 +30,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import kernel as wkv  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref  # noqa: E402
 from repro_torch.kernels.selective_scan import kernel as scan  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.selective_scan import ref as scan_ref  # noqa: E402
@@ -352,12 +357,139 @@ def test_scan_function_runs_both_kernels(card):
     assert scan.selective_scan_bwd.launches == scan.BWD_LAUNCHES_PER_CALL
 
 
+def _wkv_inputs(dev, B, T, H, n, seed, s0=True, dS_T=True, strong=False):
+    """r, k, v, w (as tests/test_kernels.py draws it, or in (0.01, 0.5)
+    where ``strong``), u, s0 (zeros when not ``s0``), dy and dS_T (None
+    when not ``dS_T``), float32."""
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(0.01, 0.5, (B, T, H, n)) if strong else
+         np.exp(-np.exp(rng.standard_normal((B, T, H, n)) * 0.5 - 1)))
+    arrays = [rng.standard_normal((B, T, H, n)) * 0.5,
+              rng.standard_normal((B, T, H, n)) * 0.5,
+              rng.standard_normal((B, T, H, n)) * 0.5, w,
+              rng.standard_normal((H, n)) * 0.5,
+              rng.standard_normal((B, H, n, n)) * 0.1 * s0,
+              rng.standard_normal((B, T, H, n)),
+              rng.standard_normal((B, H, n, n))]
+    out = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in arrays]
+    return out[:7] + [out[7] if dS_T else None]
+
+
+# (B, T, H, n, s0, dS_T, strong): one step, T 17 and off the 16-step TMA
+# stage and the 8-step chunk, every head size, zero s0 and no dS_T, strong
+# decays
+WKV_CASES = [(1, 1, 2, 64, True, True, False),
+             (2, 17, 3, 64, True, True, False),
+             (2, 100, 2, 8, True, True, False),
+             (1, 33, 1, 32, False, False, False),
+             (2, 64, 2, 16, True, True, True),
+             (1, 130, 4, 64, True, False, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,item", [("rwkv6-7b", "6.5.3")])
-def test_recurrent_blocks_refuse_to_train_on_the_card(card, arch, item):
-    cfg, params, batch = _smoke(arch, card)
-    step = steps.make_train_step(cfg, adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        step(params, adamw.init_opt_state(params), batch)
-    with torch.no_grad():            # serving still runs the kernels
+@pytest.mark.parametrize("B,T,H,n,s0,dS,strong", WKV_CASES)
+def test_wkv_backward_kernel_matches_plain_version(card, B, T, H, n, s0, dS,
+                                                   strong):
+    """The forward's checkpoints within 1e-5 of the plain version's; the
+    backward kernel's six gradients within the float32 block gate of the
+    plain backward's, two calls bit-identical, each call two launches; each
+    planted fault fails the gate."""
+    r, k, v, w, u, s, dy, dS_T = _wkv_inputs(card, B, T, H, n, T + H + n,
+                                              s0, dS, strong)
+    rtol, atol = TOL[torch.float32]
+    fwd = wkv.wkv6_fwd.launches
+    y, s_final, ck = wkv.wkv6_fwd(r, k, v, w, u, s, checkpoints=True)
+    assert wkv.wkv6_fwd.launches == fwd + 1
+    y_p, s_p, ck_p = wkv.wkv6_checkpoints_plain(r, k, v, w, u, s)
+    for got, want in ((y, y_p), (s_final, s_p), (ck, ck_p)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    launches = wkv.wkv6_bwd.launches
+    got = wkv.wkv6_bwd(r, k, v, w, u, s, dy, dS_T, checkpoints=ck)
+    again = wkv.wkv6_bwd(r, k, v, w, u, s, dy, dS_T, checkpoints=ck)
+    assert wkv.wkv6_bwd.launches == \
+        launches + 2 * wkv.BWD_LAUNCHES_PER_CALL
+    want = wkv.wkv6_bwd_plain(r, k, v, w, u, s, dy, dS_T)
+    torch.cuda.synchronize()
+    for name, x, x2, ww in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got,
+                               again, want):
+        assert x.shape == ww.shape and x.dtype == ww.dtype == torch.float32
+        assert torch.equal(x, x2), f"{name} differs between repeats"
+    errs = wkv_ref.bwd_block_errs(got, want, rtol, atol)
+    assert max(errs) <= 1, errs
+    faults = wkv_ref.bwd_planted_faults(r, k, v, w, u, s, dy, dS_T, got,
+                                        want)
+    assert len(faults) == 2 + (dS_T is not None)
+    for name, faulty in faults.items():
+        assert max(wkv_ref.bwd_block_errs(faulty, want, rtol, atol)) > 1, \
+            name
+
+
+@pytest.mark.cuda
+def test_wkv_backward_kernel_at_no_steps(card):
+    """T = 0: ds0 = dS_T and du = 0 from the kernel; no checkpoints, no
+    backward without them."""
+    r, k, v, w, u, s, dy, dS_T = _wkv_inputs(card, 2, 0, 2, 16, 0)
+    y, s_final, ck = wkv.wkv6_fwd(r, k, v, w, u, s, checkpoints=True)
+    assert ck.shape == (2, 2, 0, 16, 16) and torch.equal(s_final, s)
+    dr, dk, dv, dw, du, ds0 = wkv.wkv6_bwd(r, k, v, w, u, s, dy, dS_T,
+                                           checkpoints=ck)
+    torch.cuda.synchronize()
+    assert all(x.shape == (2, 0, 2, 16) for x in (dr, dk, dv, dw))
+    assert torch.equal(ds0, dS_T) and torch.equal(du, torch.zeros_like(u))
+    with pytest.raises(ValueError, match="checkpoints"):
+        wkv.wkv6_bwd(r, k, v, w, u, s, dy, dS_T)
+
+
+@pytest.mark.cuda
+def test_wkv_function_runs_both_kernels(card):
+    r, k, v, w, u, s, dy, dS_T = _wkv_inputs(card, 2, 40, 3, 64, 1)
+    held = [x.clone().requires_grad_(True) for x in (r, k, v, w, u, s)]
+    wkv.zero_launches()
+    y, s_final = wkv_ops.wkv6(*held)
+    assert (wkv.wkv6_fwd.launches, wkv.wkv6_fwd.checkpoint_launches) == \
+        (1, 1)
+    grads = torch.autograd.grad((y, s_final), held, (dy, dS_T))
+    assert wkv.wkv6_bwd.launches == wkv.BWD_LAUNCHES_PER_CALL
+    want = wkv.wkv6_bwd_plain(r, k, v, w, u, s, dy, dS_T)
+    errs = wkv_ref.bwd_block_errs(grads, want, *TOL[torch.float32])
+    assert max(errs) <= 1, errs
+    with torch.no_grad():
+        y2, _ = wkv_ops.wkv6(*held)
+    assert y2.grad_fn is None
+    assert (wkv.wkv6_fwd.launches, wkv.wkv6_fwd.checkpoint_launches) == \
+        (2, 1)
+    assert wkv.wkv6_bwd.launches == wkv.BWD_LAUNCHES_PER_CALL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,fwd_per_layer", [("full", 2), ("none", 1)])
+def test_rwkv_train_step_launches_and_repeats(card, policy, fwd_per_layer):
+    """An rwkv6-7b smoke step: one wkv6 forward launch a layer (two under
+    ``full``), one wkv6 backward call (two launches) a layer and no flash
+    launch, and two runs from the same state give bit-identical losses and
+    parameters; serving (under no_grad) writes no checkpoints."""
+    cfg, params, batch = _smoke("rwkv6-7b", card, remat_policy=policy)
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(lr=1e-3))
+    runs = []
+    for _ in range(2):
+        p = adamw.tree_map(torch.clone, params)
+        kernel.zero_launches()
+        wkv.zero_launches()
+        p, s, m = step(p, adamw.init_opt_state(p), batch)
+        torch.cuda.synchronize()
+        assert (wkv.wkv6_fwd.launches, wkv.wkv6_fwd.checkpoint_launches,
+                wkv.wkv6_bwd.launches, kernel.flash_attention_fwd.launches,
+                kernel.flash_attention_bwd.launches) == (
+            fwd_per_layer * cfg.n_layers, fwd_per_layer * cfg.n_layers,
+            wkv.BWD_LAUNCHES_PER_CALL * cfg.n_layers, 0, 0)
+        assert np.isfinite(float(m["loss"]))
+        runs.append((float(m["loss"]), p))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(adamw.tree_leaves(runs[0][1]),
+                    adamw.tree_leaves(runs[1][1])):
+        assert torch.equal(a, b)
+    wkv.zero_launches()
+    with torch.no_grad():
         T.prefill(params, cfg, batch)
+    assert (wkv.wkv6_fwd.launches, wkv.wkv6_fwd.checkpoint_launches,
+            wkv.wkv6_bwd.launches) == (cfg.n_layers, 0, 0)
