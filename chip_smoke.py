@@ -503,7 +503,9 @@ WKV_BWD_CASES = [("rwkv6-7b train", (4, 2048, 64, 64), True, True, False),
                  ("n 16", (2, 130, 4, 16), True, True, False),
                  ("n 32", (1, 96, 3, 32), True, True, False),
                  ("zero s0, no dS_T", (2, 64, 4, 64), False, False, False),
-                 ("strong decays", (2, 300, 4, 64), True, True, True)]
+                 ("strong decays", (2, 300, 4, 64), True, True, True),
+                 ("one (b, h): one cluster", (1, 9, 1, 64), True, True,
+                  False)]
 WKV_CKPT_TOL = 1e-4
 RWKV_TRAIN_LAYERS = 8
 RWKV_F32_BATCH = (1, 512)
@@ -3314,6 +3316,16 @@ def wkv_bwd_gate(torch, dev, gen, smi: str) -> dict:
         fwd_checkpoints_ms=_cuda_ms(torch, lambda: wkv.wkv6_fwd(
             r, k, v, w, u, s0, checkpoints=True)),
         max_abs_err=max_err)
+    occ = row["occupancy"] = wkv.bwd_occupancy(n)
+    print(f"wkv6_bwd occupancy at n {n}: {occ['registers']} registers a "
+          f"thread, {occ['static_smem_bytes'] + occ['dynamic_smem_bytes']} "
+          f"bytes of shared memory a CTA of {occ['threads']} threads, "
+          f"{occ['cluster']} CTAs a cluster, {B * H * occ['cluster']} CTAs "
+          f"a call; {occ['ctas_per_sm']} CTAs ({occ['warps_per_sm']} warps) "
+          f"an SM, {occ['active_clusters']} clusters resident on the card")
+    if occ["ctas_per_sm"] < 2 or occ["warps_per_sm"] < 8:
+        raise AssertionError("wkv6_bwd: fewer than 2 CTAs (8 warps) an SM "
+                             f"at n {n}")
     print(f"wkv6_bwd [{B}, {T}, {H}, {n}] float32: kernel {row['ms']:.4f} "
           f"ms ({wkv.BWD_LAUNCHES_PER_CALL} launches), plain "
           f"{row['plain_ms']:.4f} ms (a Python loop over {T} steps each "

@@ -19,11 +19,18 @@ design.
 
 Under training the forward also stores the state entering every chunk of
 ``CHUNK`` steps.  The backward replaces no TPU kernel (the reference
-differentiates its ``lax.scan``): one block a (b, h) keeps dS in
-registers as the forward keeps S, takes the chunks in reverse order,
-recomputes a chunk's states from its checkpoint into shared memory and
-walks it back; du's sum over b goes through per-(b, h) sums and a second
-launch that adds them in a fixed order.
+differentiates its ``lax.scan``): the rows of each (b, h)'s dS are split
+over a thread-block cluster (2 CTAs of 8 warps at n = 64, 2 CTAs an SM),
+each lane keeping 8 columns of one row in registers; a CTA takes the
+chunks in reverse order, recomputes its rows of a chunk's states from the
+checkpoint into registers and walks the chunk back, two steps at a time,
+with no barrier a step: dr, dk and dw are summed over a row's lanes and
+dv over a warp's rows by xor shuffles, and dv's sum over the warps and
+ranks is sent by ``st.async`` to the rank that owns the columns and added
+once a chunk.  The inputs arrive by bulk copies multicast to the cluster.
+du's sum over b goes through per-(b, h) sums and a second launch that adds
+them in a fixed order.  :func:`bwd_occupancy` reports the walk's
+registers, shared memory, cluster and CTAs an SM on the card.
 """
 from __future__ import annotations
 
@@ -86,7 +93,34 @@ def _bwd_launcher():
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.wkv6_bwd_occupancy.argtypes = [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.wkv6_bwd_occupancy.restype = ctypes.c_int
     return lib, fn
+
+
+# what wkv6_bwd_occupancy writes, in its order
+OCCUPANCY_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+                  "threads", "cluster", "ctas_per_sm", "active_clusters")
+
+
+def bwd_occupancy(n: int = 64) -> dict:
+    """The backward walk's occupancy on the current card at head size
+    ``n``: registers a thread (``cudaFuncGetAttributes``), static and
+    dynamic shared memory a CTA in bytes, threads a CTA, CTAs a cluster,
+    CTAs an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and
+    clusters resident on the whole card at once
+    (``cudaOccupancyMaxActiveClusters``), with ``warps_per_sm``.  Needs a
+    card."""
+    if n not in HEAD_SIZES:
+        raise ValueError(f"head size {n} is not one of the kernel's "
+                         f"{HEAD_SIZES}")
+    lib, _ = _bwd_launcher()
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    loader.check(lib, lib.wkv6_bwd_occupancy(n, out), "wkv6_bwd occupancy")
+    occ = dict(zip(OCCUPANCY_KEYS, out))
+    occ["warps_per_sm"] = occ["ctas_per_sm"] * occ["threads"] // 32
+    return occ
 
 
 def _check_inputs(r, k, v, w, u, s0, **more):

@@ -100,14 +100,17 @@ def bwd_block_errs(got, want, rtol: float, atol: float, rows: int = 64):
 
 def bwd_planted_faults(r, k, v, w, u, s0, dy, dS_T, got, want,
                        chunk: int = 8):
-    """Three faulty backward kernels' results, built from ``got`` (the
-    kernel's ``(dr, dk, dv, dw, du, ds0)``) and ``want`` (the plain
-    version's), as ``{name: (dr, dk, dv, dw, du, ds0)}``: ``"dS_T
-    dropped"`` (only where ``dS_T`` is given: the kernel's result less
-    what dS_T adds), ``"u term of dk dropped"`` (dk less r_t⊙u·(dy_t·v_t))
-    and ``"S read one step late"`` (the first ``chunk`` steps' dr taken at
-    S_t in place of S_{t-1}, as a recomputed state read one slot late
-    gives).  The gate must fail each."""
+    """Faulty backward kernels' results, built from ``got`` (the kernel's
+    ``(dr, dk, dv, dw, du, ds0)``) and ``want`` (the plain version's), as
+    ``{name: (dr, dk, dv, dw, du, ds0)}``: ``"dS_T dropped"`` (only where
+    ``dS_T`` is given: the kernel's result less what dS_T adds), ``"u term
+    of dk dropped"`` (dk less r_t⊙u·(dy_t·v_t)), ``"S read one step
+    late"`` (the first ``chunk`` steps' dr taken at S_t in place of
+    S_{t-1}, as a recomputed state read one slot late gives) and ``"one row
+    group's share of dv dropped"`` (dv_t less Σ_i dS_t[i, m]·k_t[i] over
+    the first quarter of the rows i, as a cluster rank whose partial sums
+    are missed gives; only where dS_t is not 0 at every step, that is
+    where ``dS_T`` is given or T > 1).  The gate must fail each."""
     f32 = torch.float32
     faults = {}
     if dS_T is not None:
@@ -125,4 +128,17 @@ def bwd_planted_faults(r, k, v, w, u, s0, dy, dS_T, got, want,
         s = w[:, t, :, :, None] * s + k[:, t, :, :, None] * v[:, t, :, None, :]
         dr[:, t] += torch.einsum("bhim,bhm->bhi", s - s_prev, dy[:, t])
     faults["S read one step late"] = (dr,) + tuple(got[1:])
+    B, T, H, n = r.shape
+    if dS_T is not None or T > 1:
+        # dS_t does not depend on k: walk it back from dS_T
+        q = max(n // 4, 1)
+        dv = got[2].clone()
+        g = (torch.zeros((B, H, q, n), dtype=f32, device=r.device)
+             if dS_T is None else dS_T.to(f32)[:, :, :q].clone())
+        for t in reversed(range(T)):
+            dv[:, t] -= torch.einsum("bhim,bhi->bhm", g, k[:, t, :, :q])
+            g = (w[:, t, :, :q, None] * g
+                 + r[:, t, :, :q, None] * dy[:, t, :, None, :])
+        faults["one row group's share of dv dropped"] = (
+            got[:2] + (dv,) + tuple(got[3:]))
     return faults

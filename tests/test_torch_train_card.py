@@ -377,13 +377,22 @@ def _wkv_inputs(dev, B, T, H, n, seed, s0=True, dS_T=True, strong=False):
 
 # (B, T, H, n, s0, dS_T, strong): one step, T 17 and off the 16-step TMA
 # stage and the 8-step chunk, every head size, zero s0 and no dS_T, strong
-# decays
+# decays; then the edges of the backward's cluster split: one (b, h) (one
+# cluster of 4 CTAs at n 64, 2 at n 32, one CTA below), T 1, 7 (less than
+# a chunk), 9 and 15 (one past and one short of a chunk), strong decays
 WKV_CASES = [(1, 1, 2, 64, True, True, False),
              (2, 17, 3, 64, True, True, False),
              (2, 100, 2, 8, True, True, False),
              (1, 33, 1, 32, False, False, False),
              (2, 64, 2, 16, True, True, True),
-             (1, 130, 4, 64, True, False, True)]
+             (1, 130, 4, 64, True, False, True),
+             (1, 1, 1, 64, True, False, False),
+             (1, 7, 1, 64, True, True, False),
+             (1, 9, 1, 64, False, True, True),
+             (1, 15, 1, 32, True, True, False),
+             (1, 9, 1, 16, True, True, True),
+             (1, 7, 1, 8, True, False, False),
+             (1, 23, 1, 64, True, True, True)]
 
 
 @pytest.mark.cuda
@@ -418,10 +427,23 @@ def test_wkv_backward_kernel_matches_plain_version(card, B, T, H, n, s0, dS,
     assert max(errs) <= 1, errs
     faults = wkv_ref.bwd_planted_faults(r, k, v, w, u, s, dy, dS_T, got,
                                         want)
-    assert len(faults) == 2 + (dS_T is not None)
+    assert len(faults) == 2 + (dS_T is not None) + (dS_T is not None
+                                                   or T > 1)
     for name, faulty in faults.items():
         assert max(wkv_ref.bwd_block_errs(faulty, want, rtol, atol)) > 1, \
             name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cluster", [(8, 1), (16, 1), (32, 2), (64, 2)])
+def test_wkv_backward_occupancy(card, n, cluster):
+    """The walk back's split: dS's rows over a cluster of ``cluster`` CTAs;
+    at n 64, at least 2 CTAs (8 warps) an SM."""
+    occ = wkv.bwd_occupancy(n)
+    assert occ["cluster"] == cluster and occ["active_clusters"] > 0
+    assert occ["ctas_per_sm"] >= 1
+    if n == 64:
+        assert occ["ctas_per_sm"] >= 2 and occ["warps_per_sm"] >= 8, occ
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ float32) under weak and strong decays, hold :class:`WKV6`'s gradient to
 autograd through the plain forward (1e-5), check it in float64 with
 ``gradcheck``, and hold the time-mix's gradients to ``jax.vjp`` of the
 reference's ``rwkv_time_forward`` in its ``scan`` form, for each of the
-port's ``time_mix_impl`` (each leaf within 1e-4 of its max |gradient|).
+port's ``time_mix_impl`` (each leaf within 1e-4 of its max |gradient|),
+and hold the card's gate (``bwd_block_errs``) to passing the plain
+backward against ``jax.vjp`` and failing every planted fault.
 Inputs are drawn with numpy from a seed, at shapes no larger than [2, 64,
 4, 16] (n = 32 at one head).  The CUDA kernel is compared with the same
 plain version on the card (``tests/test_torch_train_card.py``,
@@ -32,13 +34,19 @@ from repro.models import transformer as ref_T  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv import kernel, ops  # noqa: E402
 from repro_torch.kernels.rwkv6_wkv.ref import (  # noqa: E402
-    wkv6_bwd_ref, wkv6_ref)
+    bwd_block_errs, bwd_planted_faults, wkv6_bwd_ref, wkv6_ref)
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 
 TOL = 1e-5             # float32, relative and absolute
 MODEL_TOL = 1e-4       # the time-mix's gradients: each over its max
+# the card's gate (chip_smoke's BWD_GATE["float32"], rtol and atol): each
+# block of 64 steps within rtol·||want|| + atol·√n
+GATE = (1e-5, 1e-7)
+# (B, T, H, n) of the planted faults' test: a cluster of one CTA (n 16),
+# of 4 (n 64), and one step at n 8
+FAULT_SHAPES = [(2, 17, 3, 16), (1, 33, 2, 64), (1, 1, 2, 8)]
 
 # (B, T, H, n): one step, T across the 8-step chunk, every head size the
 # kernel takes below 64
@@ -85,6 +93,33 @@ def test_plain_backward_matches_jax_vjp(B, T, H, n, decay, with_dS):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
         _close(g, w)
+
+
+@pytest.mark.parametrize("with_dS", [True, False])
+@pytest.mark.parametrize("B,T,H,n", FAULT_SHAPES)
+def test_planted_faults_fail_the_gate(B, T, H, n, with_dS):
+    """The card's gate (``bwd_block_errs`` at ``GATE``) against ``jax.vjp``
+    of the reference: the plain backward within it, and every planted fault
+    built from the plain result above it.  "one row group's share of dv
+    dropped" is planted wherever dS_t is not 0 at every step."""
+    arrays = _inputs(B, T, H, n, 11 * T + n)
+    dy, dS = arrays[6], arrays[7] if with_dS else np.zeros_like(arrays[7])
+    want = jax.jit(lambda xs, ct: jax.vjp(jnp_wkv6_ref, *xs)[1](ct))(
+        [jnp.asarray(x) for x in arrays[:6]],
+        (jnp.asarray(dy), jnp.asarray(dS)))
+    want = [torch.from_numpy(np.array(x)) for x in want]
+    held = [torch.from_numpy(x) for x in arrays[:7]]
+    dS_T = torch.from_numpy(arrays[7]) if with_dS else None
+    plain = kernel.wkv6_bwd(*held, dS_T)
+    assert max(bwd_block_errs(plain, want, *GATE)) <= 1
+    faults = bwd_planted_faults(*held, dS_T, plain, plain)
+    assert set(faults) == (
+        {"u term of dk dropped", "S read one step late"}
+        | ({"dS_T dropped"} if with_dS else set())
+        | ({"one row group's share of dv dropped"} if with_dS or T > 1
+           else set()))
+    for name, faulty in faults.items():
+        assert max(bwd_block_errs(faulty, want, *GATE)) > 1, name
 
 
 @pytest.mark.parametrize("B,T,H,n", SHAPES)
