@@ -333,7 +333,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     give the single-process result, and the ring, which must give it or
     fail by gloo's TCP transport refusing a device pointer (printed on a
     line of its own); the phase's wall is printed;
-18. print the card's name and power limit, the ``kernels`` JSON line and,
+18. the compile surfaces (``dryrun_phase``): the six mini cells of the
+    dry run (granite-3-8b ``train_4k``, rwkv6-7b ``decode_32k`` and
+    gemma3-1b ``prefill_32k`` at two layers and narrow widths, on the
+    (2, 4) and (2, 2, 2) test meshes) through
+    ``repro_torch.launch.dryrun.lower_cell`` on fake process groups
+    under ``FakeTensorMode``, in subprocesses (one for the (2, 4) cells,
+    one for each (2, 2, 2) cell, side by side, each with a 300 s limit)
+    in which ``jax``, ``jaxlib`` and ``repro`` are blocked: the card's
+    machine has no jax, and the port's dry run must stand alone there.
+    Every cell must come out ``ok`` with FLOPs above 0, and granite-3-8b's
+    train cell must move collective bytes on both meshes; each cell's
+    FLOPs, collective bytes and fake step's wall, and the phase's wall,
+    are printed.  The dry run needs no card; its counts are analytic;
+19. print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 The phases that count each kernel's launches (3, 4, 6, 7 and 11) pin the
@@ -520,6 +533,14 @@ PARALLEL_BATCH = (2, 512)
 PARALLEL_PREFILL = (4, 2048)
 PARALLEL_K_FRAC = 0.01
 PARALLEL_RANKS = 8
+# the compile surfaces (phase 18): the reference's mini dry-run gate
+# (tests/test_dryrun_mini.py): these cells at DRYRUN_SMALL, grad-accum 2,
+# gemma3-1b with one KV head and 16-token windows every other layer
+DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
+                ("gemma3-1b", "prefill_32k"))
+DRYRUN_SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                    head_dim=16, d_ff=128, vocab_size=512)
+DRYRUN_TIMEOUT_S = 300
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
 N_ORACLE = 512             # of them checked against the brute-force oracle
@@ -606,8 +627,10 @@ def _cuda_ms(torch, fn, reps: int = REPS, queued: bool = True) -> float:
 
     The card first spins for ``QUEUE_SLEEP_CYCLES``; the launches are
     queued meanwhile, so they run back to back and the events time the
-    device, not the host's rate of enqueueing small kernels.  Raises if
-    the host took longer to enqueue them than the card spun.  With
+    device, not the host's rate of enqueueing small kernels.  Where the
+    host took longer to enqueue them than the card spun (a pause of the
+    host's), the window is timed again, up to three times, and then it
+    raises: no timing with host gaps in it is returned.  With
     ``queued=False`` the card does not spin first: for a function that
     enqueues thousands of small kernels (a Python loop over time steps),
     whose time is set by the host, the events then time the host's loop
@@ -615,23 +638,24 @@ def _cuda_ms(torch, fn, reps: int = REPS, queued: bool = True) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    spin, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-    spin.record()
-    if queued:
-        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    if queued and enqueue_ms >= spin.elapsed_time(start):
-        raise AssertionError(f"enqueueing {reps} calls took {enqueue_ms:.2f}"
-                             " ms, longer than the card spun: the timing "
-                             "would include host gaps")
-    return start.elapsed_time(end) / reps
+    for _ in range(3):
+        spin, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spin.record()
+        if queued:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if not queued or enqueue_ms < spin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+    raise AssertionError(f"enqueueing {reps} calls took {enqueue_ms:.2f}"
+                         " ms, longer than the card spun, three times: the "
+                         "timing would include host gaps")
 
 
 WALL_FIELDS = ("wall_time_s", "host_time_s", "wall_s", "refresh_latency_s")
@@ -4504,6 +4528,69 @@ def parallel_phase(torch, np, dev, zero_counts, read_counts,
     return out
 
 
+_DRYRUN_CELLS = r"""
+import json, sys, time
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from repro_torch.launch.dryrun import fake_process_group, lower_cell
+from repro_torch.launch.mesh import make_test_mesh
+cells, small, multi_pod = json.loads(sys.argv[1])
+out = {}
+with fake_process_group(8):
+    mesh = make_test_mesh(multi_pod=multi_pod)
+    for arch, shape in cells:
+        over = dict(small)
+        if arch == "gemma3-1b":
+            over.update(n_kv_heads=1, local_window=16, global_every=2)
+        rec = lower_cell(arch, shape, mesh, profile="tuned", overrides=over,
+                         opt_overrides={"grad_accum": 2})
+        out[f"{arch}|{shape}|{'mp' if multi_pod else 'pod'}"] = {
+            "ok": rec["ok"], "flops": rec["cost"]["flops"],
+            "coll": rec["collectives"]["total_bytes"],
+            "lower_s": rec["lower_s"]}
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
+assert not bad, bad
+print(json.dumps(out))
+"""
+
+
+def dryrun_phase(root: Path) -> dict:
+    """The six mini dry-run cells in subprocesses with jax and the
+    reference blocked: the (2, 4) mesh's three in one, each (2, 2, 2)
+    cell in its own, side by side.  Returns {cell: {ok, flops, coll,
+    lower_s}}; raises if a subprocess fails or a cell is not ok."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    jobs = [(list(DRYRUN_CELLS), False)] + [([c], True)
+                                           for c in DRYRUN_CELLS]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CELLS,
+         json.dumps([cells, DRYRUN_SMALL, mp])], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cells, mp in jobs]
+    cells = {}
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if proc.returncode:
+                raise AssertionError(f"a dry-run subprocess failed:\n"
+                                     f"{out[-2000:]}{err[-4000:]}")
+            cells.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert len(cells) == 2 * len(DRYRUN_CELLS), sorted(cells)
+    for key, rec in sorted(cells.items()):
+        print(f"phase 18: {key} ok={rec['ok']} flops={rec['flops']:.6e} "
+              f"collective_bytes={rec['coll']} lower_s={rec['lower_s']}")
+        assert rec["ok"] and rec["flops"] > 0, key
+    for mesh in ("pod", "mp"):
+        assert cells[f"granite-3-8b|train_4k|{mesh}"]["coll"] > 0, mesh
+    return cells
+
+
 def _tree_to(tree, device):
     """A tree of dicts and lists of tensors, copied to ``device``."""
     if isinstance(tree, dict):
@@ -5428,7 +5515,13 @@ def main() -> int:
     print(f"parallel plane on {_nvidia_smi('name,power.limit')}: "
           + json.dumps({k: par[k] for k in ("times_s", "bytes")}))
 
-    # ---- 18. result lines ---------------------------------------------
+    # ---- 18. the compile surfaces (host only) ----------------------------
+    t0 = time.perf_counter()
+    dryrun_phase(root)
+    print(f"phase 18 (the dry run's six mini cells) wall "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. result lines ---------------------------------------------
     print(_nvidia_smi("name,power.limit"))
     rows = []
     for key, name, src, replaces in (

@@ -383,3 +383,245 @@ def constrain(x, spec: PartitionSpec):
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def replicate_dim(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank: a DTensor that
+    shards that dim is all-gathered over those mesh axes, and one that
+    holds partial sums is reduced, its other placements kept; anything
+    else comes back as it is.  For an op that has no DTensor strategy on
+    a sharded dim (a gather along it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    dim = dim % x.dim()
+    want = tuple(Replicate() if (getattr(p, "dim", None) == dim
+                                 or isinstance(p, Partial)) else p
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _whole_groups(x, dims: Sequence[int], group: int):
+    """``x`` with each of ``dims`` gathered whole where a DTensor's shards
+    of it do not fall on whole groups of ``group`` elements (8 KV heads
+    over a 16-way axis, 25 heads over any even one), which DTensor's views
+    refuse to regroup themselves; other placements are kept."""
+    from torch.distributed.tensor import Replicate
+
+    ways = {}
+    for i, p in enumerate(x.placements):
+        if getattr(p, "dim", None) in dims:
+            ways[p.dim] = ways.get(p.dim, 1) * x.device_mesh.size(i)
+    bad = {d for d, w in ways.items() if (x.shape[d] // group) % w
+           or x.shape[d] % w}
+    if not bad:
+        return x
+    want = tuple(Replicate() if getattr(p, "dim", None) in bad else p
+                 for p in x.placements)
+    return x.redistribute(x.device_mesh, want)
+
+
+def _split(x, dim: int, n: int):
+    x = _whole_groups(x, (dim,), x.shape[dim] // n)
+    return x.reshape(tuple(x.shape[:dim]) + (n, x.shape[dim] // n)
+                     + tuple(x.shape[dim + 1:]))
+
+
+def _merge(x, dim: int):
+    x = _whole_groups(x, (dim, dim + 1), 1)
+    return x.reshape(tuple(x.shape[:dim]) + (x.shape[dim] * x.shape[dim + 1],)
+                     + tuple(x.shape[dim + 2:]))
+
+
+class _SplitDim(torch.autograd.Function):
+    """[..., n·m, ...] -> [..., n, m, ...] on DTensors, regrouping shards
+    in both directions (its backward merges the two dims back)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim = dim
+        return _split(x, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _merge(g, ctx.dim), None, None
+
+
+class _MergeDims(torch.autograd.Function):
+    """[..., n, m, ...] -> [..., n·m, ...] on DTensors (the inverse of
+    :class:`_SplitDim`)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        return _merge(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _split(g, ctx.dim, ctx.n), None
+
+
+def split_dim(x, dim: int, n: int):
+    """``x`` with dim ``dim`` (n·m long) as two dims [n, m]: a reshape, and
+    on a DTensor one whose shards of that dim are gathered first where
+    they do not fall on whole groups of m (and whose gradient is
+    regrouped likewise)."""
+    dim %= x.dim()
+    if isinstance(x, _dtensor()):
+        return _SplitDim.apply(x, dim, n)
+    return x.reshape(tuple(x.shape[:dim]) + (n, x.shape[dim] // n)
+                     + tuple(x.shape[dim + 1:]))
+
+
+def merge_dims(x, dim: int):
+    """``x`` with dims ``dim`` and ``dim + 1`` as one: a reshape, and on a
+    DTensor one whose unevenly sharded dims are gathered first (and whose
+    gradient is regrouped as :func:`split_dim` regroups)."""
+    dim %= x.dim()
+    if isinstance(x, _dtensor()):
+        return _MergeDims.apply(x, dim)
+    return x.reshape(tuple(x.shape[:dim]) + (x.shape[dim] * x.shape[dim + 1],)
+                     + tuple(x.shape[dim + 2:]))
+
+
+def split_last(x, n: int):
+    """``x`` [..., n·m] as [..., n, m] (:func:`split_dim` on the last)."""
+    return split_dim(x, -1, n)
+
+
+def merge_last(x):
+    """``x`` [..., n, m] as [..., n·m] (:func:`merge_dims` on the last
+    two)."""
+    return merge_dims(x, -2)
+
+
+def _dtensor():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def write_at(buf, dim: int, pos: int, value) -> None:
+    """``buf[(:,) * dim, pos] = value``, in place.  For a DTensor that
+    shards ``dim``, the write lands in the one shard that holds ``pos``,
+    at its local offset (DTensor would select ``pos`` from a gathered
+    copy and write into that); ``value`` is first placed as ``buf``'s
+    other dims are.  Shards of ``dim`` must be even."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    index = (slice(None),) * dim
+    if not isinstance(buf, DTensor):
+        buf[index + (pos,)] = value
+        return
+    mesh = buf.device_mesh
+    coord = mesh.get_coordinate()
+    lo, parts = 0, 1
+    want = []
+    for i, p in enumerate(buf.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            lo, parts = lo * mesh.size(i) + coord[i], parts * mesh.size(i)
+            want.append(Replicate())
+        elif isinstance(p, Shard):
+            want.append(Shard(p.dim - (p.dim > dim)))
+        else:
+            want.append(p)
+    if buf.shape[dim] % parts:
+        raise NotImplementedError(
+            f"write_at: dim {dim} of {tuple(buf.shape)} is split unevenly "
+            f"over {parts} shards")
+    step = buf.shape[dim] // parts
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    local = value.redistribute(mesh, want).to_local()
+    if lo * step <= pos < (lo + 1) * step:
+        buf.to_local()[index + (pos - lo * step,)] = local
+
+
+def resolve_partial(x):
+    """A DTensor's pending partial sums reduced (``Partial`` placements
+    made ``Replicate``), its shards kept; anything else comes back as it
+    is.  DTensor reduces an embedding lookup from a vocab-sharded table
+    (a masked partial) once only, so a lookup that feeds both a block and
+    the residual is reduced where it is made."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(Replicate() if isinstance(p, Partial) else p
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def pad_front(x, n: int):
+    """``x`` [B, S, ...] with ``n`` zero rows before its dim 1
+    (``F.pad(x, (0, 0, n, 0))`` for a [B, S, d] tensor).  On a DTensor the
+    zeros are concatenated, since DTensor has no sharding strategy for a
+    pad on every torch version; the values are the same."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        zeros = torch.zeros_like(x.narrow(1, 0, 1)).expand(
+            (x.shape[0], n) + tuple(x.shape[2:]))
+        return torch.cat([zeros, x], dim=1)
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (n, 0))
+
+
+def map_shards(fn, args: Sequence, roles: Sequence[Dict[str, int]],
+               out_roles: Sequence[Dict[str, int]]):
+    """``fn(*args)`` for a function that is separable along some named
+    dims (each (batch, head) pair of a recurrence on its own): ``roles[j]``
+    names the tensor dims of ``args[j]`` (``{"b": 0, "h": 2}``), and
+    ``out_roles[k]`` those of ``fn``'s k-th output.
+
+    With plain tensors this is ``fn(*args)``.  Where ``args[0]`` is a
+    DTensor, each mesh axis that shards one of its named dims evenly
+    shards that dim of every argument that has it, and every other axis
+    replicates; ``fn`` then runs on each rank's local blocks, which hold
+    whole slices of the separable dims, and its outputs come back as
+    DTensors placed by ``out_roles``.  DTensor has no sharding strategy
+    for such a recurrence (its steps' products fold a sharded batch and
+    head into one dim, which DTensor refuses or plans slowly)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = args[0]
+    if not isinstance(lead, DTensor):
+        return fn(*args)
+    mesh = lead.device_mesh
+    role_of = []                       # mesh axis -> role or None
+    ways: Dict[str, int] = {}
+    for i, p in enumerate(lead.placements):
+        role = next((r for r, d in roles[0].items()
+                     if isinstance(p, Shard) and p.dim == d), None)
+        if role is not None:
+            n = ways.get(role, 1) * mesh.size(i)
+            if all(a.shape[rl[role]] % n == 0
+                   for a, rl in zip(args, roles) if role in rl):
+                ways[role] = n
+            else:
+                role = None
+        role_of.append(role)
+
+    def place(rl):
+        return [Shard(rl[r]) if r in rl else Replicate() for r in role_of]
+
+    local = []
+    for a, rl in zip(args, roles):
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        local.append(a.redistribute(mesh, place(rl)).to_local())
+    outs = fn(*local)
+    wrapped = []
+    for o, rl in zip(outs, out_roles):
+        shape = [n * (ways.get(next((r for r, d in rl.items() if d == i),
+                                    None), 1))
+                 for i, n in enumerate(o.shape)]
+        wrapped.append(DTensor.from_local(
+            o, mesh, place(rl), run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride()))
+    return tuple(wrapped)

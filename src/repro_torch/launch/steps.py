@@ -1,5 +1,6 @@
 """Step builders (train, prefill, decode), closed over a
-:class:`ModelConfig` as in the reference.
+:class:`ModelConfig` as in the reference, and the abstract input specs
+the dry run places on a mesh.
 
 The train step differentiates ``T.model_loss`` with autograd where the
 reference uses ``jax.value_and_grad``: on the card every GQA layer's
@@ -11,11 +12,13 @@ backward kernel.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
+from repro_torch.distributed.meshes import replicate_dim, split_dim
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      tree_leaves, tree_map)
@@ -58,11 +61,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                                  f"{grad_accum} microbatches")
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=opt_state.step.device)
-            gsum = tree_map(lambda p: torch.zeros(p.shape,
-                                                  dtype=torch.float32,
-                                                  device=p.device), params)
+            # zeros placed as each parameter is (a DTensor's placement,
+            # on a mesh), so that the in-place sums stay where it is
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            params)
             for j in range(grad_accum):
-                mb = {k: v[j::grad_accum].contiguous()
+                # rows j, j + accum, ... through a reshape of the leading
+                # dim, which keeps a batch sharded on it sharded (a
+                # strided slice of a sharded dim would gather it) where
+                # its shards hold whole groups of accum rows
+                mb = {k: split_dim(v, 0, B // grad_accum)[:, j].contiguous()
                       for k, v in batch.items()}
                 l, g = _loss_and_grads(cfg, params, mb)
                 tree_map(lambda a, b: a.add_(b.to(torch.float32)), gsum, g)
@@ -100,6 +108,93 @@ def make_decode_step(cfg: ModelConfig):
     @torch.no_grad()
     def decode_one(params, cache, tokens, pos):
         logits, cache = T.decode_step(params, cfg, cache, tokens, pos)
+        # on a mesh, the vocab gathered whole: DTensor's argmax over a dim
+        # that two mesh axes shard returns wrong-shaped indices
+        logits = replicate_dim(logits, -1)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return decode_one
+
+
+# ---------------------------------------------------------------------------
+# abstract input specs
+# ---------------------------------------------------------------------------
+#
+# The reference's ``jax.ShapeDtypeStruct`` trees become tensors with no
+# storage: ``meta`` tensors, or, where the caller passes a
+# ``FakeTensorMode``, fake tensors of that mode on the CPU, which DTensor
+# can place on a CPU mesh.  Keys, shapes and dtypes are the reference's.
+
+
+def _spec(shape, dtype, fake_mode) -> torch.Tensor:
+    if fake_mode is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    with fake_mode:
+        return torch.empty(shape, dtype=dtype)
+
+
+def _to_meta(tree):
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                fake_mode=None) -> Dict[str, Any]:
+    """Stand-ins for the data batch of a train/prefill step."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if cfg.frontend == "audio":
+        return {"frames": _spec((B, S, cfg.d_model), bf16, fake_mode),
+                "labels": _spec((B, S, cfg.n_codebooks), i32, fake_mode)}
+    if cfg.frontend == "vision":
+        return {"tokens": _spec((B, S), i32, fake_mode),
+                "vision_embeds": _spec((B, cfg.n_vision_tokens, cfg.d_model),
+                                       bf16, fake_mode)}
+    return {"tokens": _spec((B, S), i32, fake_mode)}
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig,
+                 fake_mode=None) -> Dict[str, Any]:
+    """Inputs for one decode step with a seq_len-deep cache."""
+    B, S = shape.global_batch, shape.seq_len
+    with fake_mode or contextlib.nullcontext():
+        cache = T.init_cache(cfg, B, S,
+                             device="cpu" if fake_mode else "meta")
+    tok = (B, 1, cfg.n_codebooks) if cfg.frontend == "audio" else (B, 1)
+    return {"cache": cache, "tokens": _spec(tok, torch.int32, fake_mode),
+            "pos": _spec((), torch.int32, fake_mode)}
+
+
+def param_specs(cfg: ModelConfig, seed: int = 0, fake_mode=None) -> Any:
+    """The parameter tree's shapes and dtypes.  ``T.init_params`` runs
+    under a ``FakeTensorMode`` (the caller's, or one of its own whose
+    leaves come back as ``meta`` tensors), so no weight is drawn and no
+    storage is allocated: a 236e9-parameter tree costs nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = fake_mode or FakeTensorMode()
+    with mode:
+        tree = T.init_params(cfg, torch.Generator().manual_seed(seed))
+    return tree if fake_mode is not None else _to_meta(tree)
+
+
+def abstract_opt_state(params_spec, fake_mode=None) -> OptState:
+    f32 = lambda p: _spec(p.shape, torch.float32, fake_mode)  # noqa: E731
+    return OptState(mu=tree_map(f32, params_spec),
+                    nu=tree_map(f32, params_spec),
+                    step=_spec((), torch.int32, fake_mode))
+
+
+def input_specs(arch_or_cfg, shape_name: str,
+                fake_mode=None) -> Dict[str, Any]:
+    """Every model input for (arch, shape) as tensors with no storage."""
+    from repro_torch.configs.base import get_config
+    cfg = arch_or_cfg if isinstance(arch_or_cfg, ModelConfig) \
+        else get_config(arch_or_cfg)
+    shape = SHAPES[shape_name]
+    if shape.kind == "decode":
+        return decode_specs(cfg, shape, fake_mode)
+    return batch_specs(cfg, shape, fake_mode)

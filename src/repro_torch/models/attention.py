@@ -28,6 +28,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed.meshes import merge_last, split_last, write_at
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import Params, apply_rope, dense_init
 
@@ -49,7 +50,7 @@ def gqa_init(generator: torch.Generator, cfg, dtype: torch.dtype) -> Params:
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n, hd)
+    return split_last(x, n)
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -159,10 +160,12 @@ def gqa_forward(p: Params, cfg, x: torch.Tensor, window: int,
         # keep q's SEQUENCE dim sharded on "model" through the attention
         # (kv replicated): head sharding degenerates to replication where
         # n_heads does not divide the TP degree (hymba's 25), S divides
-        from repro_torch.models.layers import sequence_shard
+        from repro_torch.models.layers import sequence_gather, sequence_shard
         q = sequence_shard(q)
     out = attention_full(q, k, v, cfg, window)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    if cfg.sequence_parallel:
+        out = sequence_gather(out)
+    return merge_last(out) @ p["wo"]
 
 
 def gqa_prefill(p: Params, cfg, x: torch.Tensor,
@@ -171,7 +174,7 @@ def gqa_prefill(p: Params, cfg, x: torch.Tensor,
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, torch.arange(S, device=x.device)[None, :])
     out = attention_full(q, k, v, cfg, window)
-    return (out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"],
+    return (merge_last(out) @ p["wo"],
             {"k": k, "v": v})
 
 
@@ -188,8 +191,8 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict, pos: int,
     Smax = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, cfg, x,
                            torch.full((B, 1), pos, device=x.device))
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    write_at(cache["k"], 1, pos, k_new[:, 0].to(cache["k"].dtype))
+    write_at(cache["v"], 1, pos, v_new[:, 0].to(cache["v"].dtype))
     kr = _repeat_kv(cache["k"], H // KV)
     vr = _repeat_kv(cache["v"], H // KV)
     s = (torch.einsum("bqhd,bkhd->bhqk", q, kr).to(torch.float32)
@@ -198,7 +201,7 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Dict, pos: int,
     s = torch.where(_window_mask(torch.tensor(pos, device=x.device), kj,
                                  window), s, NEG_INF)
     prob = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", prob, vr).reshape(B, 1, H * hd)
+    out = merge_last(torch.einsum("bhqk,bkhd->bqhd", prob, vr))
     return out @ p["wo"], cache
 
 
@@ -269,7 +272,7 @@ def mla_forward(p: Params, cfg, x: torch.Tensor, window: int = 0,
                         NEG_INF)
         prob = torch.softmax(s, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", prob, v)
-    y = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    y = merge_last(out) @ p["wo"]
     if return_cache:
         return y, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
     return y
@@ -288,8 +291,9 @@ def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
     Smax = cache["c_kv"].shape[1]
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(
         p, cfg, x, torch.full((B, 1), pos, device=x.device))
-    cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
-    cache["k_rope"][:, pos] = k_rope_new[:, 0, 0].to(cache["k_rope"].dtype)
+    write_at(cache["c_kv"], 1, pos, c_kv_new[:, 0].to(cache["c_kv"].dtype))
+    write_at(cache["k_rope"], 1, pos,
+             k_rope_new[:, 0, 0].to(cache["k_rope"].dtype))
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     # absorb wkv_b's K half into q: q_eff [B, 1, H, kv_lora]
     wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H,
@@ -305,7 +309,7 @@ def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Dict,
     prob = torch.softmax(s, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqk,bkl->bqhl", prob, c_kv)     # latent context
     out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)
-    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
+    return merge_last(out) @ p["wo"], cache
 
 
 def layer_windows(cfg) -> List[int]:

@@ -47,6 +47,20 @@ def sequence_shard(x: torch.Tensor) -> torch.Tensor:
     return constrain(x, P(batch_ax, "model", *([None] * (x.dim() - 2))))
 
 
+def sequence_gather(x: torch.Tensor) -> torch.Tensor:
+    """The other half of sequence parallelism: a DTensor [B, S, ...] whose
+    sequence dim is sharded is all-gathered over it before a block's
+    projections, as Megatron's sequence parallelism does, so that no
+    matmul folds a sharded sequence into its rows; anything else (a plain
+    tensor, no ambient mesh) comes back as it is."""
+    from repro_torch.core.compat import get_abstract_mesh
+    from repro_torch.distributed.meshes import replicate_dim
+
+    if get_abstract_mesh() is None or x.dim() < 3:
+        return x
+    return replicate_dim(x, 1)
+
+
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
@@ -138,7 +152,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross-entropy; logits [..., V] in any float dtype (float32
     math)."""
-    logits = logits.to(torch.float32)
+    from repro_torch.distributed.meshes import replicate_dim
+
+    # a vocab-sharded DTensor is gathered whole first: the label gather has
+    # no DTensor strategy along a sharded dim (plain tensors pass as they
+    # are)
+    logits = replicate_dim(logits.to(torch.float32), -1)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = lse - ll
@@ -153,8 +172,10 @@ def _vocab_chunk(x: torch.Tensor, wc: torch.Tensor, labels: torch.Tensor,
                  ll: torch.Tensor):
     """One vocab chunk of :func:`chunked_softmax_xent`: the running max,
     sum and label logit after the chunk's [T, chunk] logits."""
+    from repro_torch.distributed.meshes import replicate_dim
+
     chunk = wc.shape[0]
-    logits = (x @ wc.T).to(torch.float32)                  # [T, chunk]
+    logits = replicate_dim((x @ wc.T).to(torch.float32), -1)  # [T, chunk]
     m_new = torch.maximum(m, logits.amax(dim=-1))
     s = s * torch.exp(m - m_new) + torch.exp(
         logits - m_new[:, None]).sum(-1)

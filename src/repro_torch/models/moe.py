@@ -125,10 +125,13 @@ def moe_forward(p: Params, cfg, x: torch.Tensor
     # -- compact dispatch buffers: column C collects the dropped slots --
     flat = torch.where(r.keep, r.expert * (C + 1) + r.position, C)
     token_of_slot = (torch.arange(S * K, device=x.device) // K).expand(B, -1)
-    idx = torch.zeros((B, E * (C + 1)), dtype=torch.long, device=x.device)
-    idx.scatter_(1, flat, token_of_slot)
-    w = torch.zeros((B, E * (C + 1)), dtype=torch.float32, device=x.device)
-    w.scatter_(1, flat, torch.where(r.keep, r.gate, 0.0))
+    # out-of-place scatters into fresh zeros: on a mesh the buffers take
+    # the routing's (batch-sharded) placement
+    idx = torch.zeros((B, E * (C + 1)), dtype=torch.long,
+                      device=x.device).scatter(1, flat, token_of_slot)
+    w = torch.zeros((B, E * (C + 1)), dtype=torch.float32,
+                    device=x.device).scatter(
+                        1, flat, torch.where(r.keep, r.gate, 0.0))
     idx = idx.view(B, E, C + 1)[:, :, :C].reshape(B, E * C)
     w = w.view(B, E, C + 1)[:, :, :C]
 

@@ -32,6 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import map_shards, pad_front, split_last
 from repro_torch.kernels.rwkv6_wkv.ops import wkv6
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
 from repro_torch.models.layers import Params, dense_init
@@ -85,7 +86,7 @@ def rwkv_channel_init(generator: torch.Generator, cfg,
 def _token_shift(x: torch.Tensor,
                  last: Optional[torch.Tensor]) -> torch.Tensor:
     """x: [B,S,d] -> previous-token tensor (zeros/carry at t=0)."""
-    prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    prev = pad_front(x, 1)[:, :-1]
     if last is not None:
         prev[:, 0] = last
     return prev
@@ -102,8 +103,7 @@ def _ddlerp(p: Params, x: torch.Tensor, prev: torch.Tensor):
     xx = prev - x
     base = x + xx * p["mu_base"][0][None, None].to(x.dtype)   # shared pre-mix
     lora = torch.tanh(base @ p["mix_w1"])                   # [B,S,5*MIX]
-    B, S, _ = x.shape
-    lora = lora.reshape(B, S, 5, MIX_LORA)
+    lora = split_last(lora, 5)                              # [B,S,5,MIX]
     delta = torch.einsum("bsfm,fmd->bsfd", lora, p["mix_w2"]).to(x.dtype)
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (
         p["mu_base"].to(x.dtype)[None, None] + delta)
@@ -153,10 +153,13 @@ def rwkv_time_forward(p: Params, cfg, x: torch.Tensor,
         raise ValueError(f"unknown time_mix_impl {cfg.time_mix_impl!r} "
                          f"(known: {TIME_MIX_IMPLS})")
     r, k, v, w, g, s0 = time_mix_inputs(p, cfg, x, state)
-    if x.shape[1] > 1:
-        y, s_last = wkv6(r, k, v, w, p["u"], s0)
-    else:
-        y, s_last = _wkv_scan(r, k, v, w, p["u"], s0)
+    # each (batch, head) pair's recurrence is its own: on a mesh it runs
+    # on each rank's shards of the two
+    seq = {"b": 0, "h": 2}
+    y, s_last = map_shards(wkv6 if x.shape[1] > 1 else _wkv_scan,
+                           (r, k, v, w, p["u"], s0),
+                           (seq, seq, seq, seq, {"h": 0}, {"b": 0, "h": 1}),
+                           (seq, {"b": 0, "h": 1}))
     out = time_mix_output(p, y, g, x)
     return out, {"tm_x": x[:, -1], "wkv": s_last}
 

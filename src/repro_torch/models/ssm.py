@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.meshes import map_shards, pad_front
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.models.layers import Params, dense_init
 
@@ -55,7 +56,7 @@ def ssm_init(generator: torch.Generator, cfg, dtype: torch.dtype) -> Params:
 def _conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv.  x: [B,S,di]; w: [K,di]."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    pad = pad_front(x, K - 1)
     out = torch.zeros_like(x)
     for i in range(K):
         out = out + pad[:, i:i + S, :] * w[i]
@@ -80,7 +81,12 @@ def _selective_scan(u, dt, A, B, C, D, h0=None, impl: str = "scan"):
         h = a[:, 0] * h0.to(f32) + b[:, 0]
         y = torch.einsum("bdn,bn->bd", h, C[:, 0].to(f32))[:, None]
     else:
-        y, h = selective_scan(a, b, C, h0)
+        # each (batch, channel) pair's recurrence is its own: on a mesh it
+        # runs on each rank's shards of the two
+        y, h = map_shards(selective_scan, (a, b, C, h0),
+                          ({"b": 0, "d": 2}, {"b": 0, "d": 2}, {"b": 0},
+                           {"b": 0, "d": 1}),
+                          ({"b": 0, "d": 2}, {"b": 0, "d": 1}))
     return y + D[None, None] * u.to(f32), h
 
 

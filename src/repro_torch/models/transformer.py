@@ -37,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.meshes import resolve_partial
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6
@@ -44,8 +45,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stubs
 from repro_torch.models.layers import (Params, chunked_softmax_xent,
                                        dtype_of, embed_init, mlp, mlp_init,
-                                       rmsnorm, rmsnorm_init, sequence_shard,
-                                       softmax_xent)
+                                       rmsnorm, rmsnorm_init, sequence_gather,
+                                       sequence_shard, softmax_xent)
 
 REMAT_POLICIES = ("none", "full", "dots", "names")
 
@@ -187,13 +188,13 @@ def _block_full(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 window: int) -> Tuple[torch.Tensor, torch.Tensor | float]:
     """One layer, full sequence.  Returns (x, aux_loss)."""
     if cfg.block_type == "rwkv":
-        y, _ = rwkv6.rwkv_time_forward(p["time"], cfg,
-                                       rmsnorm(p["ln1"], x, cfg.rms_eps))
+        y, _ = rwkv6.rwkv_time_forward(
+            p["time"], cfg, _norm_in(cfg, p["ln1"], x))
         x = x + y
-        y, _ = rwkv6.rwkv_channel_forward(p["channel"], cfg,
-                                          rmsnorm(p["ln2"], x, cfg.rms_eps))
+        y, _ = rwkv6.rwkv_channel_forward(
+            p["channel"], cfg, _norm_in(cfg, p["ln2"], x))
         return x + y, 0.0
-    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+    h = _norm_in(cfg, p["ln1"], x)
     if cfg.mla is not None:
         a = attn.mla_forward(p["attn"], cfg, h, window)
     else:
@@ -210,11 +211,19 @@ def _ffn(p: Params, cfg: ModelConfig,
          x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor | float]:
     """The residual FFN half of a block: SwiGLU, or MoE with its aux
     loss."""
-    h2 = rmsnorm(p["ln2"], x, cfg.rms_eps)
+    h2 = _norm_in(cfg, p["ln2"], x)
     if "moe" in p:
         y, aux = moe_mod.moe_forward(p["moe"], cfg, h2)
         return x + y, aux
     return x + mlp(p["ffn"], h2), 0.0
+
+
+def _norm_in(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A branch's input: the residual's RMSNorm, and under sequence
+    parallelism, on a mesh, that norm's sequence gathered whole (the
+    residual stays sequence-sharded between blocks)."""
+    h = rmsnorm(p, x, cfg.rms_eps)
+    return sequence_gather(h) if cfg.sequence_parallel else h
 
 
 def _fuse(cfg: ModelConfig, p: Params, a: torch.Tensor,
@@ -292,7 +301,7 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     # the reference's params["embed"][tokens]; F.embedding's backward sums
     # repeated tokens in a fixed order on the card (indexing's scatters
     # with atomics)
-    x = F.embedding(batch["tokens"], params["embed"])
+    x = resolve_partial(F.embedding(batch["tokens"], params["embed"]))
     if cfg.frontend == "vision":
         x = stubs.vision_prepend(params["vision"],
                                  batch["vision_embeds"].to(x.dtype), x)
@@ -432,7 +441,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     if cfg.frontend == "audio":
         x = stubs.audio_embed_tokens(params["audio"], tokens)
     else:
-        x = params["embed"][tokens]
+        x = resolve_partial(F.embedding(tokens, params["embed"]))
     x = x.to(dtype_of(cfg.activ_dtype))
     windows = attn.layer_windows(cfg)
     n_dense = _n_dense(cfg)

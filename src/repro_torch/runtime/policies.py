@@ -188,8 +188,8 @@ class CostModelPolicy(StaticPolicy):
         HLO, which has no CUDA counterpart: not ported."""
         raise NotImplementedError(
             "CostModelPolicy.from_hlo reads XLA HLO, which a CUDA program "
-            "does not have (ROADMAP item 6); seed the policy with "
-            "from_autotune or explicit rates")
+            "does not have (see repro_torch/launch/hlo_cost.py); seed the "
+            "policy with from_autotune or explicit rates")
 
     @classmethod
     def from_autotune(cls, cache, kernel: str, device=None,

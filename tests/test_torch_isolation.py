@@ -167,6 +167,9 @@ with tempfile.TemporaryDirectory() as wd:
                     ckpt_dir=wd + "/ck2", ckpt_every=1, log_every=100)
 print("TRAINED", len(hist["loss"]), bool(np.isfinite(hist["loss"]).all()),
       len(resumed["loss"]))
+from repro_torch.launch import dryrun, hlo_cost, report
+print("COMPILE SURFACES", dryrun.lower_cell.__name__,
+      hlo_cost.HloCost.__name__, report.HBM_PER_CHIP_GB)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
              and sys.modules[m] is not None)
@@ -199,6 +202,7 @@ def test_port_mines_with_jax_and_reference_blocked():
     assert "AUTOTUNE 3 ['roofline']" in out.stdout
     assert "CLIS 3 64 64" in out.stdout
     assert "TRAINED 3 True 2" in out.stdout
+    assert "COMPILE SURFACES lower_cell HloCost 80.0" in out.stdout
     tag, n_sup, n_rules, backend, n_recs, serving = out.stdout.split()[-6:]
     assert tag == "MINED" and int(n_sup) > 0 and backend == "ref"
     assert int(n_recs) > 0 and serving == "ref"
@@ -219,7 +223,8 @@ def test_no_source_imports_jax_or_reference():
                    "distributed/mining.py", "distributed/ranks.py",
                    "launch/mine.py", "launch/recommend.py",
                    "models/moe.py", "models/stubs.py",
-                   "configs/deepseek_v2_236b.py"):
+                   "configs/deepseek_v2_236b.py", "launch/dryrun.py",
+                   "launch/hlo_cost.py", "launch/report.py"):
         assert PORT / module in files
     offenders = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
                  + _NO_MSGPACK.findall(f.read_text()) for f in files}
