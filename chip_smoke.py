@@ -333,17 +333,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     give the single-process result, and the ring, which must give it or
     fail by gloo's TCP transport refusing a device pointer (printed on a
     line of its own); the phase's wall is printed;
-18. the compile surfaces (``dryrun_phase``): the six mini cells of the
+18. the compile surfaces (``dryrun_phase``): the eight mini cells of the
     dry run (granite-3-8b ``train_4k``, rwkv6-7b ``decode_32k`` and
     gemma3-1b ``prefill_32k`` at two layers and narrow widths, on the
-    (2, 4) and (2, 2, 2) test meshes) through
+    (2, 4) and (2, 2, 2) test meshes, and deepseek-v2-236b and dbrx-132b
+    ``train_4k`` on the (2, 2, 2) mesh at grad-accum 128, 2 microbatch
+    rows over 4 batch shards as the 2 x 16 x 16 mesh has 16 over 32)
+    through
     ``repro_torch.launch.dryrun.lower_cell`` on fake process groups
     under ``FakeTensorMode``, in subprocesses (one for the (2, 4) cells,
     one for each (2, 2, 2) cell, side by side, each with a 300 s limit)
     in which ``jax``, ``jaxlib`` and ``repro`` are blocked: the card's
     machine has no jax, and the port's dry run must stand alone there.
     Every cell must come out ``ok`` with FLOPs above 0, and granite-3-8b's
-    train cell must move collective bytes on both meshes; each cell's
+    train cell must move collective bytes on both meshes, as must the two
+    uneven cells; each cell's
     FLOPs, collective bytes and fake step's wall, and the phase's wall,
     are printed.  The dry run needs no card; its counts are analytic;
 19. print the card's name and power limit, the ``kernels`` JSON line and,
@@ -540,6 +544,11 @@ DRYRUN_CELLS = (("granite-3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
                 ("gemma3-1b", "prefill_32k"))
 DRYRUN_SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                     head_dim=16, d_ff=128, vocab_size=512)
+# and the MoE archs' train cells at the production ratio of microbatch rows
+# to batch shards (16 over 2 x 16 at grad-accum 16): grad-accum 128 leaves
+# 2 rows over the (2, 2, 2) mesh's 4 batch shards
+DRYRUN_UNEVEN = (("deepseek-v2-236b", "train_4k"), ("dbrx-132b", "train_4k"))
+DRYRUN_UNEVEN_ACCUM = 128
 DRYRUN_TIMEOUT_S = 300
 REPS = 20
 N_QUERIES = 4096           # baskets served on each serving path
@@ -4534,7 +4543,7 @@ for name in ("jax", "jaxlib", "repro"):
     sys.modules[name] = None
 from repro_torch.launch.dryrun import fake_process_group, lower_cell
 from repro_torch.launch.mesh import make_test_mesh
-cells, small, multi_pod = json.loads(sys.argv[1])
+cells, small, multi_pod, accum = json.loads(sys.argv[1])
 out = {}
 with fake_process_group(8):
     mesh = make_test_mesh(multi_pod=multi_pod)
@@ -4543,10 +4552,11 @@ with fake_process_group(8):
         if arch == "gemma3-1b":
             over.update(n_kv_heads=1, local_window=16, global_every=2)
         rec = lower_cell(arch, shape, mesh, profile="tuned", overrides=over,
-                         opt_overrides={"grad_accum": 2})
+                         opt_overrides={"grad_accum": accum})
         out[f"{arch}|{shape}|{'mp' if multi_pod else 'pod'}"] = {
             "ok": rec["ok"], "flops": rec["cost"]["flops"],
             "coll": rec["collectives"]["total_bytes"],
+            "grad_accum": rec["config"]["grad_accum"],
             "lower_s": rec["lower_s"]}
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
@@ -4556,18 +4566,20 @@ print(json.dumps(out))
 
 
 def dryrun_phase(root: Path) -> dict:
-    """The six mini dry-run cells in subprocesses with jax and the
+    """The eight mini dry-run cells in subprocesses with jax and the
     reference blocked: the (2, 4) mesh's three in one, each (2, 2, 2)
-    cell in its own, side by side.  Returns {cell: {ok, flops, coll,
-    lower_s}}; raises if a subprocess fails or a cell is not ok."""
+    cell in its own, side by side, the two uneven MoE train cells among
+    them.  Returns {cell: {ok, flops, coll, grad_accum, lower_s}}; raises
+    if a subprocess fails or a cell is not ok."""
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
-    jobs = [(list(DRYRUN_CELLS), False)] + [([c], True)
-                                           for c in DRYRUN_CELLS]
+    jobs = ([(list(DRYRUN_CELLS), False, 2)]
+            + [([c], True, 2) for c in DRYRUN_CELLS]
+            + [([c], True, DRYRUN_UNEVEN_ACCUM) for c in DRYRUN_UNEVEN])
     procs = [subprocess.Popen(
         [sys.executable, "-c", _DRYRUN_CELLS,
-         json.dumps([cells, DRYRUN_SMALL, mp])], cwd=root, env=env,
+         json.dumps([cells, DRYRUN_SMALL, mp, accum])], cwd=root, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cells, mp in jobs]
+        for cells, mp, accum in jobs]
     cells = {}
     try:
         for proc in procs:
@@ -4581,13 +4593,19 @@ def dryrun_phase(root: Path) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    assert len(cells) == 2 * len(DRYRUN_CELLS), sorted(cells)
+    assert len(cells) == 2 * len(DRYRUN_CELLS) + len(DRYRUN_UNEVEN), \
+        sorted(cells)
     for key, rec in sorted(cells.items()):
         print(f"phase 18: {key} ok={rec['ok']} flops={rec['flops']:.6e} "
-              f"collective_bytes={rec['coll']} lower_s={rec['lower_s']}")
+              f"collective_bytes={rec['coll']} "
+              f"grad_accum={rec['grad_accum']} lower_s={rec['lower_s']}")
         assert rec["ok"] and rec["flops"] > 0, key
     for mesh in ("pod", "mp"):
         assert cells[f"granite-3-8b|train_4k|{mesh}"]["coll"] > 0, mesh
+    for arch, shape in DRYRUN_UNEVEN:
+        rec = cells[f"{arch}|{shape}|mp"]
+        assert rec["coll"] > 0 and \
+            rec["grad_accum"] == DRYRUN_UNEVEN_ACCUM, arch
     return cells
 
 
@@ -5518,7 +5536,7 @@ def main() -> int:
     # ---- 18. the compile surfaces (host only) ----------------------------
     t0 = time.perf_counter()
     dryrun_phase(root)
-    print(f"phase 18 (the dry run's six mini cells) wall "
+    print(f"phase 18 (the dry run's eight mini cells) wall "
           f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 19. result lines ---------------------------------------------

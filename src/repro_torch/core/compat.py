@@ -56,7 +56,10 @@ def axis_sizes(mesh) -> Dict[str, int]:
     """Axis name -> size, in axis order, of either kind of mesh."""
     if isinstance(mesh, AbstractMesh):
         return dict(mesh.shape)
-    return dict(zip(axis_names(mesh), mesh.mesh.shape))
+    # sizes from the layout: a sliced mesh builds its ``.mesh`` tensor on
+    # demand, which a fake tensor mode would refuse
+    return dict(zip(axis_names(mesh),
+                    (mesh.size(i) for i in range(mesh.ndim))))
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str]):

@@ -625,3 +625,69 @@ def map_shards(fn, args: Sequence, roles: Sequence[Dict[str, int]],
             o, mesh, place(rl), run_check=False, shape=torch.Size(shape),
             stride=torch.empty(shape, device="meta").stride()))
     return tuple(wrapped)
+
+
+def microbatch_mesh(x, rows: int):
+    """The mesh a microbatch of ``rows`` rows of the batch ``x`` runs on,
+    where that is not ``x``'s own: a DTensor batch on a mesh with "pod"
+    and "data" whose ``rows`` fall whole on "data" but not on "pod" ×
+    "data" (16 rows over 2 × 16 batch shards) runs on its mesh without
+    "pod", its rows over "data", every pod the same rows; else ``None``.
+    On the whole mesh DTensor would give the axis the rows leave idle to
+    the ops' other dims, in shardings its planner searches for minutes
+    and its views get wrong; no parameter is sharded over "pod"."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    if "pod" not in names or "data" not in names:
+        return None
+    sizes = axis_sizes(mesh)
+    if rows % (sizes["pod"] * sizes["data"]) == 0 or rows % sizes["data"]:
+        return None
+    return mesh[tuple(n for n in names if n != "pod")]
+
+
+def to_submesh(tree, sub):
+    """Each DTensor of ``tree`` as a DTensor on ``sub``, a sub-mesh of its
+    own mesh, with the same local shard: it is first replicated over the
+    axes ``sub`` lacks (a no-op for the parameters, which "pod" never
+    shards)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def move(x):
+        if not isinstance(x, DTensor):
+            return x
+        names = x.device_mesh.mesh_dim_names
+        keep = [names.index(n) for n in sub.mesh_dim_names]
+        want = tuple(p if i in keep else Replicate()
+                     for i, p in enumerate(x.placements))
+        if want != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, want)
+        return DTensor.from_local(x.to_local(), sub,
+                                  [x.placements[i] for i in keep],
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return tree_map(move, tree)
+
+
+def from_submesh(tree, mesh):
+    """The inverse of :func:`to_submesh`: each DTensor of ``tree`` (on a
+    sub-mesh of ``mesh``) on ``mesh``, with the same local shard,
+    replicated over the axes the sub-mesh lacks (which held the same
+    rows)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    names = mesh.mesh_dim_names
+
+    def move(x):
+        if not isinstance(x, DTensor):
+            return x
+        want = [Replicate()] * mesh.ndim
+        for n, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+            want[names.index(n)] = p
+        return DTensor.from_local(x.to_local(), mesh, want, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+    return tree_map(move, tree)

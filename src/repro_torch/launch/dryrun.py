@@ -40,9 +40,17 @@ The record has the reference's schema.  What it counts, per device
   nothing, so the peak has no alias term to subtract.
 * ``compile_s``, ``cost.xla_flops_raw``, ``cost.xla_bytes_raw`` and
   ``cost.unknown_trip_loops`` are ``None``: an eager step compiles
-  nothing and has no XLA cost analysis, and its loops are Python loops
-  whose every trip is dispatched and counted.  ``lower_s`` is the fake
-  step's wall time.
+  nothing and has no XLA cost analysis.  ``lower_s`` is the fake step's
+  wall time.
+* loops of the step (the grad-accum microbatches) are counted once and
+  multiplied by their trips, as the reference's ``hlo_cost`` multiplies
+  a scan body by its known trip count: the loop dispatches its first
+  trip only (``steps.counting_trips``), whose FLOPs, op bytes,
+  collective bytes and counts by op are taken ``trips`` times, and the
+  work done once a step (AdamW, the final divide) once.  Every trip has
+  the same shapes and placements, so the counts are those of running
+  every trip; the peak is the counted trip's, the gradient sums live, as
+  in every trip.
 
 Where the step meets DTensor, the model places what DTensor cannot (each
 a plain op on plain tensors, so the CPU and card paths are unchanged):
@@ -62,7 +70,7 @@ a plain op on plain tensors, so the CPU and card paths are unchanged):
 * a head split or merge whose heads do not fall whole on the shards (8
   KV heads over 16, 25 heads over any even axis) is refused by DTensor's
   views: the dim is gathered first, in both directions of autograd
-  (``meshes.split_dim``, ``merge_dims``);
+  (``meshes.split_dim``, ``merge_dims``; GQA's and MLA's splits alike);
 * a decode step's new key and value are written into the one shard of a
   sequence-sharded cache that holds the position (``meshes.write_at``);
   DTensor would write into a gathered copy.  The step decodes position
@@ -87,7 +95,16 @@ a plain op on plain tensors, so the CPU and card paths are unchanged):
   batch first where its shards do not hold whole microbatch rows), which
   keeps them sharded where a strided slice of a sharded dim would gather
   the batch, and the gradient sums start from zeros placed like each
-  parameter.
+  parameter;
+* a microbatch whose rows fall whole on "data" but not on "pod" × "data"
+  (16 rows over the 2 × 16 × 16 mesh's 32 batch shards, the MoE archs'
+  ``train_4k`` at grad-accum 16) runs on the mesh without "pod", its
+  rows over "data" and every pod the same rows, its parameters and
+  gradients moved on and off that sub-mesh with their local shards
+  (``meshes.microbatch_mesh``, ``to_submesh``, ``from_submesh``): on the
+  whole mesh DTensor gives the idle "pod" axis to other dims, in
+  shardings its planner searches for minutes and its views get wrong
+  (MLA's query split, a matmul's fold of rows).
 
 Windows stay Python ints (``attention.layer_windows``), so no mask reads
 a tensor on the host.  A fake tensor never reaches a kernel wrapper: the
@@ -287,9 +304,10 @@ class _Counter(TorchDispatchMode):
     here; ops DTensor runs for its bookkeeping (``prop`` held) are not
     counted."""
 
-    def __init__(self, inputs, prop: _Bookkeeping):
+    def __init__(self, inputs, prop: _Bookkeeping, comm):
         super().__init__()
         self.prop = prop
+        self.comm = comm                   # CommDebugMode, scaled by repeat
         self.flops = 0
         self.bytes = 0
         self.coll: Dict[str, int] = {}
@@ -350,6 +368,23 @@ class _Counter(TorchDispatchMode):
 
     def alias_bytes(self) -> int:
         return sum(self.inputs[k] for k in self.written)
+
+    @contextlib.contextmanager
+    def repeat(self, trips: int):
+        """What the block dispatches (FLOPs, op bytes, collective wire
+        bytes and ``CommDebugMode``'s counts by op) counted ``trips``
+        times: the block is one trip of a loop whose trips are alike.
+        The peak is the block's own: every trip holds the same."""
+        flops, nbytes, coll = self.flops, self.bytes, dict(self.coll)
+        counts = dict(self.comm.comm_counts)
+        yield
+        k = trips - 1
+        self.flops += k * (self.flops - flops)
+        self.bytes += k * (self.bytes - nbytes)
+        for op, v in list(self.coll.items()):
+            self.coll[op] = v + k * (v - coll.get(op, 0))
+        for op, v in list(self.comm.comm_counts.items()):
+            self.comm.comm_counts[op] = v + k * (v - counts.get(op, 0))
 
 
 def _place(tree, specs, mesh):
@@ -432,8 +467,8 @@ def lower_cell(arch: str, shape_name: str, mesh, profile: str = "tuned",
     inputs = [_local(t) for t in _tensors(args)]
 
     prop = _Bookkeeping()
-    counter = _Counter(inputs, prop)
     comm = CommDebugMode()
+    counter = _Counter(inputs, prop, comm)
     t0 = time.time()
     with contextlib.ExitStack() as stack:
         stack.enter_context(_dtensor_bookkeeping(prop))
@@ -442,6 +477,7 @@ def lower_cell(arch: str, shape_name: str, mesh, profile: str = "tuned",
         stack.enter_context(implicit_replication())
         stack.enter_context(comm)
         stack.enter_context(counter)
+        stack.enter_context(S.counting_trips(counter.repeat))
         out = step_fn(*args)
     t_lower = time.time() - t0
     outs = {_local(t).untyped_storage()._cdata: _local(t).untyped_storage()

@@ -13,12 +13,16 @@ backward kernel.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict
+import contextvars
+from typing import Any, Callable, ContextManager, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
-from repro_torch.distributed.meshes import replicate_dim, split_dim
+from repro_torch.core.compat import mesh_context
+from repro_torch.distributed.meshes import (from_submesh, microbatch_mesh,
+                                           replicate_dim, split_dim,
+                                           to_submesh)
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      tree_leaves, tree_map)
@@ -35,6 +39,48 @@ def _loss_and_grads(cfg: ModelConfig, params, batch):
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)}
     return loss.detach(), tree_map(lambda p: by_id[id(p)], held)
+
+
+# A counting context that takes a loop's trips as one trip counted n times
+# (the dry run's ``launch/dryrun._Counter``, as the reference's cost model
+# multiplies a scan body by its known trip count) sets this for its block:
+# a callable n -> context manager, entered around the one trip that runs.
+# Unset, as everywhere else, a loop runs every trip.
+_TRIP_COUNTER: contextvars.ContextVar[
+    Optional[Callable[[int], ContextManager]]] = contextvars.ContextVar(
+        "trip_counter", default=None)
+
+
+@contextlib.contextmanager
+def counting_trips(repeat: Callable[[int], ContextManager]):
+    """For the block, each loop of a step runs its first trip only, inside
+    ``repeat(trips)``, which counts what that trip dispatches ``trips``
+    times.  Every trip has the same shapes and placements, so a counter's
+    totals are those of running them all."""
+    token = _TRIP_COUNTER.set(repeat)
+    try:
+        yield
+    finally:
+        _TRIP_COUNTER.reset(token)
+
+
+def _microbatch_grads(cfg: ModelConfig, params, mb, sub):
+    """:func:`_loss_and_grads` of one microbatch, on the sub-mesh ``sub``
+    where it is not ``None`` (:func:`microbatch_mesh`): the parameters and
+    the microbatch moved onto it, the rows sharded over "data", and the
+    gradients moved back."""
+    if sub is None:
+        return _loss_and_grads(cfg, params, mb)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = next(iter(mb.values())).device_mesh
+    rows = [Shard(0) if n == "data" else Replicate()
+            for n in sub.mesh_dim_names]
+    mb = {k: v.redistribute(sub, rows)
+          for k, v in to_submesh(mb, sub).items()}
+    with mesh_context(sub):
+        loss, grads = _loss_and_grads(cfg, to_submesh(params, sub), mb)
+    return from_submesh(loss, mesh), from_submesh(grads, mesh)
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -65,16 +111,26 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             # on a mesh), so that the in-place sums stay where it is
             gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                             params)
-            for j in range(grad_accum):
-                # rows j, j + accum, ... through a reshape of the leading
-                # dim, which keeps a batch sharded on it sharded (a
-                # strided slice of a sharded dim would gather it) where
-                # its shards hold whole groups of accum rows
-                mb = {k: split_dim(v, 0, B // grad_accum)[:, j].contiguous()
-                      for k, v in batch.items()}
-                l, g = _loss_and_grads(cfg, params, mb)
-                tree_map(lambda a, b: a.add_(b.to(torch.float32)), gsum, g)
-                loss_sum = loss_sum + l
+            sub = microbatch_mesh(next(iter(batch.values())),
+                                  B // grad_accum)
+            repeat = _TRIP_COUNTER.get()
+            for j in range(grad_accum if repeat is None else 1):
+                with (contextlib.nullcontext() if repeat is None
+                      else repeat(grad_accum)):
+                    # rows j, j + accum, ... through a reshape of the
+                    # leading dim, which keeps a batch sharded on it
+                    # sharded (a strided slice of a sharded dim would
+                    # gather it) where its shards hold whole groups of
+                    # accum rows
+                    mb = {k: split_dim(v, 0, B // grad_accum)[:, j]
+                          .contiguous() for k, v in batch.items()}
+                    l, g = _microbatch_grads(cfg, params, mb, sub)
+                    tree_map(lambda a, b: a.add_(b.to(torch.float32)),
+                             gsum, g)
+                    loss_sum = loss_sum + l
+                    # a trip's microbatch and gradients are freed before
+                    # the next is made, so every trip peaks alike
+                    del mb, l, g
             loss = loss_sum / grad_accum
             grads = tree_map(lambda g: g / grad_accum, gsum)
         new_params, new_opt, metrics = adamw_update(opt_cfg, params, grads,

@@ -226,10 +226,8 @@ def mla_init(generator: torch.Generator, cfg, dtype: torch.dtype) -> Params:
 
 def _mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     m = cfg.mla
-    B, S, _ = x.shape
     H = cfg.n_heads
-    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(
-        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = split_last((x @ p["wq_a"]) @ p["wq_b"], H)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -255,8 +253,7 @@ def mla_forward(p: Params, cfg, x: torch.Tensor, window: int = 0,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H,
-                                     m.qk_nope_head_dim + m.v_head_dim)
+    kv = split_last(c_kv @ p["wkv_b"], H)
     k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],

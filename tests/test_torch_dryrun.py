@@ -11,6 +11,15 @@ and ``repro`` blocked, one subprocess for the (2, 4) mesh's cells and one
 for each (2, 2, 2) cell, whose strided shards make DTensor's
 redistribution planner the slow part, and one for a full-width cell on
 the 256-rank production mesh.
+
+Two more groups hold the train cells of the MoE archs.  The uneven ones
+take the production ratio of microbatch rows to batch shards (16 rows
+over 2 × 16 at ``grad_accum`` 16) on the (2, 2, 2) mesh: ``grad_accum``
+128 leaves 2 rows over its 4 batch shards; the reference runs them in a
+subprocess of its own.  The trip-count ones run each cell at
+``grad_accum`` 4 twice, once as the dry run counts it (one trip,
+multiplied by its trips) and once with every trip dispatched, the test
+script's own switch (``steps.counting_trips`` made a no-op).
 """
 import dataclasses
 import json
@@ -43,6 +52,12 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab_size=512)
 CELLS = [("granite-3-8b", "train_4k"), ("rwkv6-7b", "decode_32k"),
          ("gemma3-1b", "prefill_32k")]
+# 2 microbatch rows over the (2, 2, 2) mesh's 4 batch shards, as 16 rows
+# over the 2 x 16 x 16 mesh's 32
+UNEVEN = ["deepseek-v2-236b", "dbrx-132b"]
+UNEVEN_ACCUM = 128
+TRIP_ARCHS = ["granite-3-8b", "dbrx-132b", "deepseek-v2-236b"]
+TRIP_ACCUM = 4
 FIXED = ("arch", "shape", "mesh", "profile", "chips", "kind", "config",
          "params_total", "params_active")
 
@@ -57,17 +72,18 @@ from repro.launch import steps as S
 from repro.launch.dryrun import _active_params, lower_cell
 from repro.launch.mesh import make_test_mesh
 cells, small = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+meshes, accum, params = json.loads(sys.argv[3])
 out = {"records": {}, "params": {}}
-for mp in (False, True):
+for mp in meshes:
     mesh = make_test_mesh(multi_pod=mp)
     for arch, shape in cells:
         over = dict(small)
         if arch == "gemma3-1b":
             over.update(n_kv_heads=1, local_window=16, global_every=2)
         rec = lower_cell(arch, shape, mesh, profile="tuned", overrides=over,
-                         opt_overrides={"grad_accum": 2})
+                         opt_overrides={"grad_accum": accum})
         out["records"][f"{arch}|{shape}|{'mp' if mp else 'pod'}"] = rec
-for arch in list_archs():
+for arch in list_archs() if params else ():
     cfg = get_config(arch)
     spec = S.param_specs(cfg)
     total = int(sum(np.prod(l.shape) for l in jax.tree_util.tree_leaves(spec)))
@@ -79,17 +95,23 @@ _PORT = r'''
 import sys
 for name in ("jax", "jaxlib", "repro"):
     sys.modules[name] = None
-import json
+import contextlib, json
+from repro_torch.launch import steps
 from repro_torch.launch.dryrun import fake_process_group, lower_cell
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.core.compat import make_mesh
 jobs, small = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+counting_trips = steps.counting_trips
 out = {}
-for key, arch, shape, mesh_name, full in jobs:
+for key, arch, shape, mesh_name, full, accum, every_trip in jobs:
     over = None if full else dict(small)
     if over is not None and arch == "gemma3-1b":
         over.update(n_kv_heads=1, local_window=16, global_every=2)
     size = {"pod": 8, "mp": 8, "one": 1, "full_pod": 256}[mesh_name]
+    # every trip of the grad-accum loop dispatched: the counting context
+    # no longer takes them as one
+    steps.counting_trips = ((lambda repeat: contextlib.nullcontext())
+                            if every_trip else counting_trips)
     with fake_process_group(size):
         mesh = {"pod": lambda: make_test_mesh(multi_pod=False),
                 "mp": lambda: make_test_mesh(multi_pod=True),
@@ -98,7 +120,7 @@ for key, arch, shape, mesh_name, full in jobs:
         out[key] = lower_cell(arch, shape, mesh, profile="tuned",
                               overrides=over,
                               opt_overrides=None if full
-                              else {"grad_accum": 2})
+                              else {"grad_accum": accum})
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "repro") and sys.modules[m] is not None)
 assert not bad, bad
@@ -120,23 +142,49 @@ def _result(proc, timeout):
     return json.loads(line[len("RESULT"):])
 
 
+def _trip_jobs(mesh, archs):
+    """Each trip-count cell of ``archs`` on ``mesh``, counted, then every
+    trip run."""
+    return [[f"{a}|train_4k|{mesh}|{how}", a, "train_4k", mesh, False,
+             TRIP_ACCUM, how == "every"]
+            for a in archs for how in ("counted", "every")]
+
+
 @pytest.fixture(scope="module")
 def runs():
     small = json.dumps(SMALL)
-    ref = _start(_REF, json.dumps(CELLS), small)
-    pod = [[f"{a}|{s}|pod", a, s, "pod", False] for a, s in CELLS]
+    ref = _start(_REF, json.dumps(CELLS), small,
+                 json.dumps([[False, True], 2, True]))
+    ref_uneven = _start(_REF, json.dumps([[a, "train_4k"] for a in UNEVEN]),
+                        small, json.dumps([[True], UNEVEN_ACCUM, False]))
+    pod = [[f"{a}|{s}|pod", a, s, "pod", False, 2, False] for a, s in CELLS]
     pod.append(["granite-3-8b|train_4k|one", "granite-3-8b", "train_4k",
-                "one", False])
+                "one", False, 2, False])
     port = [_start(_PORT, json.dumps(pod), small)]
-    port += [_start(_PORT, json.dumps([[f"{a}|{s}|mp", a, s, "mp", False]]),
-                    small) for a, s in CELLS]
+    port += [_start(_PORT, json.dumps([[f"{a}|{s}|mp", a, s, "mp", False,
+                                        2, False]]), small)
+             for a, s in CELLS]
     full = _start(_PORT, json.dumps([["full", "granite-3-8b", "decode_32k",
-                                      "full_pod", True]]), small)
-    recs = {}
+                                      "full_pod", True, 1, False]]), small)
+    uneven = _start(_PORT, json.dumps(
+        [[f"{a}|train_4k|mp", a, "train_4k", "mp", False, UNEVEN_ACCUM,
+          False] for a in UNEVEN]), small)
+    # the (2, 2, 2) mesh's deepseek-v2-236b cell takes as long as the
+    # other two there: a subprocess of its own
+    trips = [_start(_PORT, json.dumps(_trip_jobs(m, archs)), small)
+             for m, archs in (("pod", TRIP_ARCHS),
+                              ("mp", TRIP_ARCHS[:2]),
+                              ("mp", TRIP_ARCHS[2:]))]
+    recs, trip_recs = {}, {}
     for proc in port:
         recs.update(_result(proc, 600))
+    for proc in trips:
+        trip_recs.update(_result(proc, 600))
     return {"ref": _result(ref, 600), "port": recs,
-            "full": _result(full, 600)["full"]}
+            "full": _result(full, 600)["full"],
+            "uneven": _result(uneven, 600),
+            "ref_uneven": _result(ref_uneven, 600)["records"],
+            "trips": trip_recs}
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +366,43 @@ def test_mini_records_fixed_fields_equal_reference(runs):
             assert rec[field] == want[field], (key, field)
         assert rec["roofline"]["model_flops_global"] == \
             want["roofline"]["model_flops_global"], key
+
+
+@pytest.mark.parametrize("arch", UNEVEN)
+def test_uneven_microbatch_cells_run(runs, arch):
+    """2 microbatch rows over 4 batch shards: MLA's and the experts' head
+    splits and the microbatch's rows placed where DTensor's views hold."""
+    rec = runs["uneven"][f"{arch}|train_4k|mp"]
+    assert rec["ok"] and rec["chips"] == 8
+    assert rec["config"]["grad_accum"] == UNEVEN_ACCUM
+    assert rec["cost"]["flops"] > 0
+    assert rec["collectives"]["total_bytes"] > 0
+    assert rec["memory"]["alias_bytes"] > 0              # the moments
+
+
+@pytest.mark.parametrize("arch", UNEVEN)
+def test_uneven_records_fixed_fields_equal_reference(runs, arch):
+    rec = runs["uneven"][f"{arch}|train_4k|mp"]
+    want = runs["ref_uneven"][f"{arch}|train_4k|mp"]
+    for field in FIXED:
+        assert rec[field] == want[field], field
+    assert rec["roofline"]["model_flops_global"] == \
+        want["roofline"]["model_flops_global"]
+
+
+@pytest.mark.parametrize("mesh", ["pod", "mp"])
+@pytest.mark.parametrize("arch", TRIP_ARCHS)
+def test_trip_counted_record_equals_every_trip(runs, arch, mesh):
+    """One grad-accum trip counted and multiplied by its trips gives the
+    record of dispatching every trip, field for field."""
+    got = runs["trips"][f"{arch}|train_4k|{mesh}|counted"]
+    want = runs["trips"][f"{arch}|train_4k|{mesh}|every"]
+    assert got["ok"] and want["ok"]
+    assert got["config"]["grad_accum"] == TRIP_ACCUM
+    for field in ("memory", "cost", "collectives", "roofline"):
+        assert got[field] == want[field], field
+    assert got["cost"]["flops"] > 0
+    assert got["collectives"]["total_bytes"] > 0
 
 
 def test_full_width_decode_on_the_pod_mesh(runs):
